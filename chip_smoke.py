@@ -1,0 +1,373 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port's main path.
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from `gokalman_tpu_torch/csrc`, holds
+each against its plain PyTorch version, gates the generators'
+statistics, and drives the main path at full size (98,304 Monte-Carlo
+runs x 1,000 steps of the 6-state constant-velocity CKF) through
+`MonteCarloChiSquare`, with both generators.  Every phase raises on
+failure; there is no CPU or plain-version fallback.  The last line of
+standard output is one JSON object with the device; the line before it
+lists each kernel's launches on the main path, its error against the
+plain version and both times.  Without CUDA it exits non-zero and
+prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+SEED = 20261016
+SAMPLES, STEPS = 98_304, 1_000  # bench.py's main-path shape
+DRAWS = 524_288  # generator-statistics sample (tests/test_pallas_mc.py)
+# K2 vs its plain version on the same counters.  Box-Muller: a few ulps
+# of logf and of the sincos polynomial (FMA contraction) times the 5.9σ
+# tail cap.  CLT: exact arithmetic in both, so equal.
+K2_TOL = {"box_muller": 1e-5, "clt": 0.0}
+# K1 vs its plain version, per-step traces: the same Philox draws, so
+# only f32 rounding differs (summation order, FMA); measured sensitivity
+# of the traces to 1-ulp noise perturbations is ~1e-6 relative.
+K1_RTOL, K1_ATOL = 1e-4, 1e-5
+REPLACES = {
+    "fused_mc": "gokalman_tpu/ops/pallas_mc.py:596",
+    "sample_normals": "gokalman_tpu/ops/pallas_mc.py:164",
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps, warmup):
+    """(mean milliseconds per call, last result) of `fn` by CUDA events
+    over `reps` back-to-back calls, after one `warmup()` call."""
+    import torch
+
+    warmup()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def compare_traces(name, out, ref):
+    """Hold every per-step trace of K1 against its plain version;
+    returns the largest absolute difference."""
+    import torch
+
+    errs = []
+    for field in out._fields:
+        a, b = getattr(out, field), getattr(ref, field)
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"K1 {name}: {field} shape {tuple(a.shape)} or non-finite")
+        diff = (a - b).abs()
+        errs.append(float(diff.max()))
+        bad = diff > K1_ATOL + K1_RTOL * b.abs()
+        check(not bool(bad.any()),
+              f"K1 {name}: {field} differs from the plain version by {errs[-1]}")
+    log(f"[K1 vs plain] {name}: max|diff| " + " ".join(
+        f"{f}={e:.3g}" for f, e in zip(out._fields, errs))
+        + f" (rtol {K1_RTOL:g}, atol {K1_ATOL:g})")
+    return max(errs)
+
+
+def main_model(gt, torch, device):
+    """bench.py:make_model — 6-state 3D constant velocity, H = position,
+    Van Loan with dt = 0.1, q = 0.02, R = 0.5 I, P0 = I — in float32."""
+    f32 = torch.float32
+    i3 = torch.eye(3, dtype=f32, device=device)
+    z3 = torch.zeros(3, 3, dtype=f32, device=device)
+    a = torch.cat([torch.cat([z3, i3], 1), torch.cat([z3, z3], 1)])
+    gamma = torch.cat([z3, i3])
+    f, q, _ = gt.c2d.van_loan(a, gamma, 0.02 * i3, 0.1, check_nyquist=False)
+    h = torch.cat([i3, z3], 1)
+    return gt.vanilla.new(torch.zeros(6, dtype=f32, device=device),
+                          torch.eye(6, dtype=f32, device=device), f, None, h,
+                          gt.noise.awgn(q, 0.5 * i3))
+
+
+def jerkcar_module(gt, torch, device, steps):
+    """The jerk-car's padded tv + control schedule (random controls)."""
+    import numpy as np
+
+    jc = gt.workloads.jerkcar
+    f32 = torch.float32
+    noise = gt.noise.awgn(jc.Q, jc.R, dtype=f32, device=device)
+    model, st = gt.vanilla.new(jc.X0, jc.P0, jc.F, jc.G, jc.H1, noise,
+                               dtype=f32, device=device)
+    rng = np.random.default_rng(SEED)
+    _, us, hs, rs, masks = jc.schedule(rng.standard_normal(steps),
+                                       rng.standard_normal(steps),
+                                       rng.standard_normal(steps + 1))
+    return gt.ops.fused_mc.MonteCarloChiSquare(
+        model, st, steps, controls=us, hs=hs, rs=rs, meas_masks=masks)
+
+
+def generator_gates(z, generator):
+    """Moments, skew, kurtosis and tail mass of `DRAWS` normals, with the
+    gates of tests/test_pallas_mc.py (6 standard errors)."""
+    import numpy as np
+
+    z = z.astype(np.float64)
+    n = z.size
+    check(np.isfinite(z).all(), f"{generator}: non-finite draws")
+    se = 1.0 / np.sqrt(n)
+    mean, std = z.mean(), z.std()
+    zc = z - mean
+    skew = (zc**3).mean() / std**3
+    kurt = (zc**4).mean() / std**4 - 3.0
+    check(abs(mean) < 6 * se, f"{generator}: mean {mean}")
+    check(abs(std - 1.0) < 6 * se, f"{generator}: std {std}")
+    check(abs(skew) < 6 * np.sqrt(6 / n), f"{generator}: skew {skew}")
+    if generator == "clt":
+        # Design value -1/12.17 = -0.082; support within ±5.1σ.
+        check(abs(kurt + 0.082) < 6 * np.sqrt(24 / n) + 0.01,
+              f"clt: kurtosis {kurt}")
+        check(np.abs(z).max() <= 5.1, f"clt: max |z| {np.abs(z).max()}")
+        tails = ((1.0, 0.31731, 0.01), (2.0, 0.04550, 0.005))
+    else:
+        check(abs(kurt) < 6 * np.sqrt(24 / n), f"box_muller: kurtosis {kurt}")
+        check((z == 0.0).mean() < 1e-4, "box_muller: spike at 0")
+        tails = ((1.0, 0.31731, 0.0), (2.0, 0.04550, 0.0), (3.0, 0.00270, 0.0))
+    fracs = {}
+    for thresh, expect, extra in tails:
+        frac = float((np.abs(z) > thresh).mean())
+        tol = 6 * np.sqrt(expect * (1 - expect) / n) + extra
+        check(abs(frac - expect) < tol, f"{generator}: P(|z|>{thresh}) = {frac}")
+        fracs[thresh] = frac
+    return {"mean": mean, "std": std, "skew": skew, "kurtosis": kurt,
+            "tail_mass": fracs}
+
+
+def setup():
+    """The card and the port; raises SmokeFailure without a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is False: no card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import gokalman_tpu_torch as gt
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    return gt, torch, device
+
+
+def phase_build():
+    """Build every kernel of the path from the checkout."""
+    from gokalman_tpu_torch.ops import _build, fused_mc
+
+    t0 = time.perf_counter()
+    fused_mc.load_sample_normals()
+    fused_mc.load_fused_mc(6, 3, False, False)
+    fused_mc.load_fused_mc(4, 2, True, True)
+    log(f"[build] {time.perf_counter() - t0:.1f} s for {len(_build.records)} libraries")
+    for rec in _build.records:
+        regs = [ln.strip() for ln in rec["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"[build] {rec['defines']} {rec['seconds']:.1f} s: " + " | ".join(regs))
+
+
+def phase_k2_vs_plain(torch, device):
+    """K2 against its plain version, both generators, ragged
+    count; returns the largest absolute difference."""
+    from gokalman_tpu_torch.ops import fused_mc
+
+    worst = 0.0
+    ragged = DRAWS + 3
+    for gen, tol in K2_TOL.items():
+        zk = fused_mc.sample_normals(ragged, SEED, gen, device=device)
+        zr = fused_mc.sample_normals_ref(ragged, SEED, gen, device=device)
+        torch.cuda.synchronize()
+        check(zk.shape == (ragged,), f"K2 {gen}: shape {tuple(zk.shape)}")
+        err = float((zk - zr).abs().max())
+        worst = max(worst, err)
+        log(f"[K2 vs plain] {gen}: count {ragged} max|diff| {err:.3g} (tol {tol:g})")
+        check(err <= tol, f"K2 {gen} disagrees with its plain version: {err}")
+    return worst
+
+
+def phase_k1_vs_plain(gt, torch, device):
+    """K1 against its plain version on the same seed, every
+    per-step trace; returns the largest absolute difference."""
+    from gokalman_tpu_torch.ops import fused_mc
+
+    model, st = main_model(gt, torch, device)
+    small = fused_mc.MonteCarloChiSquare(model, st, 100)
+    cases = [("cv6 exact 8192x100", small, 8192, False),
+             ("cv6 fast_rng 8192x100", small, 8192, True),
+             ("jerkcar tv+ctrl 8000x100", jerkcar_module(gt, torch, device, 100),
+              8000, False)]
+    worst = 0.0
+    for name, mod, samples, fast in cases:
+        out = mod(samples, SEED, fast)
+        ref = mod.reference(samples, SEED, fast)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_traces(name, out, ref))
+    return worst
+
+
+def phase_main_path(gt, torch, device):
+    """The counted main-path run: the generator gates (K2),
+    then c2d.van_loan -> vanilla.new + noise.awgn -> MonteCarloChiSquare
+    at full size with both generators (K1).  Returns the module and the
+    launch counts of this run."""
+    from gokalman_tpu_torch.ops import fused_mc
+
+    fused_mc.reset_launches()
+    t_main = time.perf_counter()
+    for gen in K2_TOL:
+        z = fused_mc.sample_normals(DRAWS, SEED + 1, gen, device=device)
+        stats = generator_gates(z.cpu().numpy(), gen)
+        log(f"[generator] {gen}: " + json.dumps(stats))
+    t_path = time.perf_counter()
+    model, st = main_model(gt, torch, device)
+    mod = fused_mc.MonteCarloChiSquare(model, st, STEPS)
+    torch.cuda.synchronize()
+    log(f"[main path] model + seed-independent path ({STEPS} steps): "
+        f"{time.perf_counter() - t_path:.3f} s host clock")
+    for fast in (False, True):
+        res = mod(SAMPLES, SEED, fast)
+        torch.cuda.synchronize()
+        check(res.nees_means.shape == (STEPS,) and res.mean.shape == (STEPS, 6),
+              "main path: output shapes")
+        check(all(bool(torch.isfinite(a).all()) for a in res),
+              "main path: non-finite output")
+        nees = float(res.nees_means[STEPS // 2:].mean())
+        nis = float(res.nis_means[STEPS // 2:].mean())
+        log(f"[main path] {SAMPLES}x{STEPS} fast_rng={fast}: tail NEES {nees:.4f} "
+            f"(gate 5..7), tail NIS {nis:.4f} (gate 2.5..3.5), "
+            f"final stddev {res.stddev[-1].tolist()}")
+        check(5.0 < nees < 7.0, f"main path NEES {nees} out of (5, 7)")
+        check(2.5 < nis < 3.5, f"main path NIS {nis} out of (2.5, 3.5)")
+    counts = dict(fused_mc.launches)
+    log(f"[main path] wall {time.perf_counter() - t_main:.2f} s, launches {counts}")
+    for name, count in counts.items():
+        check(count > 0, f"kernel {name} was not launched on the main path")
+    return mod, counts
+
+
+def phase_full_size(mod, device):
+    """K1 and its plain version at the main path's full shape, same seed:
+    CUDA-event times of both, and every trace compared.  K2 and its
+    plain version timed at the generator gates' shape.  Returns the
+    times and K1's largest difference."""
+    from gokalman_tpu_torch.ops import fused_mc
+
+    times, worst = {}, 0.0
+    for fast in (False, True):
+        key = "fast_rng" if fast else "exact"
+        k_ms, out = cuda_ms(lambda: mod(SAMPLES, SEED, fast), 5,
+                            lambda: mod(SAMPLES, SEED, fast))
+        p_ms, ref = cuda_ms(lambda: mod.reference(SAMPLES, SEED, fast), 1,
+                            lambda: mod.reference(1024, SEED, fast))
+        worst = max(worst, compare_traces(f"cv6 {key} {SAMPLES}x{STEPS}", out, ref))
+        times[f"fused_mc_{key}"] = (k_ms, p_ms)
+        log(f"[time] fused_mc {key} {SAMPLES}x{STEPS}: kernel {k_ms:.3f} ms "
+            f"({SAMPLES * STEPS / k_ms * 1e3:.4g} member-steps/s), "
+            f"plain {p_ms:.1f} ms ({SAMPLES * STEPS / p_ms * 1e3:.4g} member-steps/s)")
+    for gen in K2_TOL:
+        draw = lambda: fused_mc.sample_normals(DRAWS, SEED, gen, device)
+        draw_ref = lambda: fused_mc.sample_normals_ref(DRAWS, SEED, gen, device)
+        times[f"sample_normals_{gen}"] = (cuda_ms(draw, 200, draw)[0],
+                                          cuda_ms(draw_ref, 5, draw_ref)[0])
+        log(f"[time] sample_normals {gen} {DRAWS}: kernel "
+            f"{times[f'sample_normals_{gen}'][0]:.4f} ms, plain "
+            f"{times[f'sample_normals_{gen}'][1]:.3f} ms")
+    log("[time] " + json.dumps({"ms": {k: v[0] for k, v in times.items()},
+                                "plain_ms": {k: v[1] for k, v in times.items()}}))
+    return times, worst
+
+
+def phase_device_times(mod, device):
+    """Device time per launch of each kernel, from torch.profiler's CUPTI
+    trace; "not measured" where the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gokalman_tpu_torch.ops import fused_mc
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fast in (False, True):
+            for _ in range(3):
+                mod(SAMPLES, SEED, fast)
+        for gen in K2_TOL:
+            for _ in range(20):
+                fused_mc.sample_normals(DRAWS, SEED, gen, device)
+        torch.cuda.synchronize()
+    found = 0
+    for e in prof.key_averages():
+        if "fused_mc_kernel" in e.key or "sample_normals_kernel" in e.key:
+            total_us = getattr(e, "device_time_total", None) or e.cuda_time_total
+            log(f"[profile] {e.key[:90]}: {total_us / e.count / 1e3:.4f} ms "
+                f"device time per launch ({e.count} launches)")
+            found += 1
+    if not found:
+        log("[profile] kernel device time: not measured (no device events)")
+
+
+def run():
+    gt, torch, device = setup()
+    phase_build()
+    max_err = {"sample_normals": phase_k2_vs_plain(torch, device),
+               "fused_mc": phase_k1_vs_plain(gt, torch, device)}
+    mod, counts = phase_main_path(gt, torch, device)
+    times, full_err = phase_full_size(mod, device)
+    max_err["fused_mc"] = max(max_err["fused_mc"], full_err)
+    phase_device_times(mod, device)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip(), "nvidia-smi failed")
+    for line in smi.stdout.strip().splitlines():
+        log(line.strip())
+
+    kernels = []
+    for name, key in (("fused_mc", "fused_mc_exact"),
+                      ("sample_normals", "sample_normals_box_muller")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gokalman_tpu_torch/csrc/fused_mc.cu",
+            "replaces": REPLACES[name], "launches": counts[name],
+            "max_abs_err": max_err[name],
+            "ms": times[key][0], "plain_ms": times[key][1]})
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main():
+    try:
+        run()
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

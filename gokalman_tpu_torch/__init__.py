@@ -1,0 +1,31 @@
+"""gokalman_tpu_torch — the PyTorch/CUDA port of gokalman_tpu.
+
+The port keeps the JAX package's module and function names so each
+counterpart is easy to find, and uses PyTorch idiom inside: plain
+functions on tensors, NamedTuples of tensors for the model/state
+records, explicit `device=`/`dtype=` where tensors are created, and
+`torch.Generator` in place of `jax.random` keys.
+
+This slice covers the fused Monte-Carlo + chi-square main path:
+`c2d.van_loan` -> `filters.vanilla.new` + `noise.awgn` ->
+`ops.fused_mc.MonteCarloChiSquare` (hand-written CUDA kernel on a GPU,
+its plain PyTorch version on the CPU) -> `ops.ensemble.ChiSquareResult`.
+
+Importing the package builds and loads no kernel: the CUDA sources in
+`csrc/` are compiled at first use (`ops._build`).
+"""
+
+from . import c2d, convert, linalg, noise, ops, workloads
+from .filters import vanilla
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "c2d",
+    "convert",
+    "linalg",
+    "noise",
+    "ops",
+    "vanilla",
+    "workloads",
+]

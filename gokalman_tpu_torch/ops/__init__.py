@@ -1,0 +1,11 @@
+"""Hot-path ops: the ensemble pipelines and the fused CUDA kernels.
+
+`ensemble` holds the plain PyTorch pipelines (the oracle), `fused_mc`
+the hand-written kernels' wrappers and plain versions, `philox` the
+kernels' random-number device functions in torch, `scan` the log-depth
+associative scan.  `_build` compiles `csrc/*.cu` at first use only.
+"""
+
+from . import ensemble, fused_mc, philox, scan
+
+__all__ = ["ensemble", "fused_mc", "philox", "scan"]

@@ -1,0 +1,377 @@
+"""Fused Monte-Carlo + chi-square pipeline: CUDA kernel and plain version.
+
+Port of gokalman_tpu/ops/pallas_mc.py.  One launch of K1
+(`csrc/fused_mc.cu:fused_mc_kernel`) runs the whole runs x steps
+workload of SURVEY.md §3.2: truth propagation, the noiseless replay
+filter, the NEES/NIS quadratic forms and the per-step block sums, with
+one thread per ensemble member and the states in registers.  K2
+(`sample_normals_kernel`) draws normals from the same generators so
+their statistics can be tested apart from the filter averaging.
+
+The seed-independent per-step path (gains, NEES/NIS weights, masked
+schedule, control increments) comes from `precompute_path`;
+`MonteCarloChiSquare` holds it as buffers, so repeated experiments
+(new seeds, same model) compute it once.
+
+Dispatch.  Each wrapper launches its kernel when its tensors lie on a
+CUDA device, and raises if the build or the launch fails; it takes the
+plain PyTorch version only for tensors on the CPU.  `launches` counts
+kernel launches, one per launch, nowhere else.
+
+Path row layout per step (float32): K [n,p], P⁺⁻¹ [n,n], S⁻¹ [p,p],
+then with `tv` H_k [p,n] and chol R_k [p,p], then with `ctrl` G u_k
+[n].  Fixed array: F, L_q, H, L_R, x0, L0 (row-major).  The kernel's
+`Layout` struct mirrors `_layout`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import linalg
+from ..filters import vanilla
+from . import philox
+from .ensemble import ChiSquareResult, covariance_path
+
+BLOCK = 256  # ensemble members per CUDA block (KBLOCK in the kernel)
+MAX_N, MAX_P = 16, 8  # register-sane bound of the per-thread kernel
+SOURCE = "fused_mc.cu"
+GENERATORS = {"box_muller": False, "clt": True}
+
+#: Kernel launches since the last `reset_launches()`, per kernel.
+launches = {"fused_mc": 0, "sample_normals": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _layout(n: int, p: int, tv: bool, ctrl: bool) -> dict:
+    lay = {"k": 0, "pinv": n * p, "sinv": n * p + n * n}
+    end = lay["sinv"] + p * p
+    if tv:
+        lay["h"], lay["lr"] = end, end + p * n
+        end += p * n + p * p
+    if ctrl:
+        lay["gu"] = end
+        end += n
+    lay["row"] = end
+    lay["fixed"] = 3 * n * n + p * n + p * p + n
+    return lay
+
+
+@linalg.highp
+def precompute_path(model: vanilla.Model, state0: vanilla.State, steps: int,
+                    controls=None, hs=None, rs=None, meas_masks=None,
+                    cov_path: str = "moment"):
+    """Seed-independent per-step path of the fused pipeline:
+    (K, S⁻¹, (P⁺)⁻¹, masked H_k or None, chol R_k or None, G u_k or None),
+    each [T, ...] (pallas_mc.py:precompute_path and its `_compute_path`).
+    `cov_path="sqrt"` takes the factored recurrence for badly
+    conditioned f32 models (ops.ensemble._covariance_path_sqrt)."""
+    (k_path, s_inv, p_inv), hs_m, lrs = covariance_path(
+        model, state0.p, steps, hs, rs, meas_masks, cov_path)
+    gus = None
+    if controls is not None and model.g is not None:
+        u = torch.as_tensor(controls, dtype=model.f.dtype, device=model.f.device)
+        gus = u @ model.g.T  # [T, m] @ [m, n]
+    return k_path, s_inv, p_inv, hs_m, lrs, gus
+
+
+def _pack_path(path) -> torch.Tensor:
+    """[T, row_len] float32 rows of a precompute_path result."""
+    k_path, s_inv, p_inv, hs_m, lrs, gus = path
+    t = k_path.shape[0]
+    cols = [k_path, p_inv, s_inv] + [a for a in (hs_m, lrs, gus) if a is not None]
+    return torch.cat([c.reshape(t, -1) for c in cols], dim=1).to(
+        torch.float32).contiguous()
+
+
+def _pack_fixed(f, lq, h, lr, x0, l0) -> torch.Tensor:
+    return torch.cat([m.reshape(-1) for m in (f, lq, h, lr, x0, l0)]).to(
+        torch.float32).contiguous()
+
+
+def _unpack_fixed(fixed: torch.Tensor, n: int, p: int):
+    sizes = [n * n, n * n, p * n, p * p, n, n * n]
+    f, lq, h, lr, x0, l0 = torch.split(fixed, sizes)
+    return (f.view(n, n), lq.view(n, n), h.view(p, n), lr.view(p, p), x0,
+            l0.view(n, n))
+
+
+def _blocks(samples: int) -> int:
+    return -(-samples // BLOCK)
+
+
+def _block_counts(samples: int, device) -> torch.Tensor:
+    starts = torch.arange(_blocks(samples), device=device) * BLOCK
+    return torch.clamp(samples - starts, max=BLOCK)
+
+
+def _block_stats(nees, nis, x_t, samples: int) -> torch.Tensor:
+    """[blocks, 2 + 2n] per-block sums of NEES, NIS, x_t and squared
+    deviations from the block's own mean, as the kernel writes them."""
+    n = x_t.shape[0]
+    blocks = _blocks(samples)
+    pad = blocks * BLOCK - samples
+    vals = torch.cat([nees[None], nis[None], x_t])
+    sums = nn.functional.pad(vals, (0, pad)).view(2 + n, blocks, BLOCK).sum(-1)
+    counts = _block_counts(samples, x_t.device).to(x_t.dtype)
+    valid = nn.functional.pad(torch.ones_like(nees), (0, pad)).view(blocks, BLOCK)
+    dev = (nn.functional.pad(x_t, (0, pad)).view(n, blocks, BLOCK)
+           - (sums[2:] / counts)[..., None]) * valid
+    return torch.cat([sums, (dev * dev).sum(-1)]).T
+
+
+def _pool(partials: torch.Tensor, samples: int) -> ChiSquareResult:
+    """Pool [blocks, 2 + 2n, T] block partials into per-step means and
+    the ddof=1 stddev (Chan's parallel variance, in float64)."""
+    n = (partials.shape[1] - 2) // 2
+    tot = partials.to(torch.float64)
+    counts = _block_counts(samples, tot.device).to(torch.float64)[:, None, None]
+    sums = tot[:, 2:2 + n]  # [B, n, T]
+    mean = sums.sum(0) / samples
+    m2 = tot[:, 2 + n:].sum(0) + (counts * (sums / counts - mean) ** 2).sum(0)
+    out = ChiSquareResult(
+        nis_means=tot[:, 1].sum(0) / samples,
+        nees_means=tot[:, 0].sum(0) / samples,
+        mean=mean.T,
+        stddev=torch.sqrt(m2 / (samples - 1)).T,
+    )
+    return ChiSquareResult(*(a.to(torch.float32) for a in out))
+
+
+@linalg.highp
+def _partials_ref(rows, fixed, n, p, tv, ctrl, samples, seed, fast_rng,
+                  z0=None, wv=None) -> torch.Tensor:
+    """Plain PyTorch version of K1: [blocks, 2 + 2n, T] float32 partials.
+
+    `z0` [n, S] and `wv` [T, n+p, S] replace the Philox draws when
+    given (the tests feed in the JAX interpreter's stubbed draws).
+    """
+    dev = rows.device
+    lay = _layout(n, p, tv, ctrl)
+    f, lq, h, lr, x0, l0 = _unpack_fixed(fixed, n, p)
+    members = torch.arange(samples, device=dev)
+    if z0 is None:
+        z0 = philox.normals(seed, members, philox.INIT_DRAW, n, fast_rng)
+    x_t = x0[:, None] + l0 @ z0.to(dev, torch.float32)
+    x_e = x0[:, None].expand(n, samples)
+    parts = []
+    for t, row in enumerate(rows):
+        k = row[lay["k"]:lay["pinv"]].view(n, p)
+        p_inv = row[lay["pinv"]:lay["sinv"]].view(n, n)
+        s_inv = row[lay["sinv"]:lay["sinv"] + p * p].view(p, p)
+        h_t = row[lay["h"]:lay["h"] + p * n].view(p, n) if tv else h
+        lr_t = row[lay["lr"]:lay["lr"] + p * p].view(p, p) if tv else lr
+        gu = row[lay["gu"]:lay["gu"] + n, None] if ctrl else 0.0
+        if wv is None:
+            d = philox.normals(seed, members, t + 1, n + p, fast_rng)
+        else:
+            d = wv[t].to(dev, torch.float32)
+        x_t = f @ x_t + lq @ d[:n] + gu
+        x_p = f @ x_e + gu
+        innov = h_t @ (x_t - x_p) + lr_t @ d[n:]
+        x_e = x_p + k @ innov
+        err = x_t - x_e
+        nees = torch.sum(err * (p_inv @ err), 0)
+        nis = torch.sum(innov * (s_inv @ innov), 0)
+        parts.append(_block_stats(nees, nis, x_t, samples))
+    return torch.stack(parts, dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def load_fused_mc(n: int, p: int, tv: bool, ctrl: bool):
+    """Build (at first use) and load K1's (n, p, tv, ctrl) specialisation."""
+    from . import _build
+
+    lib = _build.load(SOURCE, {"KN": n, "KP": p, "KTV": int(tv),
+                               "KCTRL": int(ctrl), "KBLOCK": BLOCK})
+    lib.fused_mc_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    lib.fused_mc_launch.restype = ctypes.c_int
+    lib.fused_mc_row_len.restype = ctypes.c_int
+    lib.fused_mc_fixed_len.restype = ctypes.c_int
+    lay = _layout(n, p, tv, ctrl)
+    if (lib.fused_mc_row_len(), lib.fused_mc_fixed_len()) != (lay["row"], lay["fixed"]):
+        raise RuntimeError("csrc/fused_mc.cu Layout disagrees with _layout")
+    return lib
+
+
+def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
+                   seed, fast_rng) -> torch.Tensor:
+    """Launch K1; [blocks, 2 + 2n, T] float32 partials on rows.device."""
+    lay = _layout(n, p, tv, ctrl)
+    if rows.dtype != torch.float32 or not rows.is_contiguous() \
+            or rows.dim() != 2 or rows.shape[1] != lay["row"]:
+        raise ValueError(f"path rows must be contiguous float32 [T, {lay['row']}]")
+    if fixed_host.dtype != np.float32 or fixed_host.shape != (lay["fixed"],) \
+            or not fixed_host.flags.c_contiguous:
+        raise ValueError(f"fixed must be contiguous float32 [{lay['fixed']}]")
+    lib = load_fused_mc(n, p, tv, ctrl)
+    steps = rows.shape[0]
+    out = torch.empty((_blocks(samples), 2 + 2 * n, steps),
+                      dtype=torch.float32, device=rows.device)
+    k0, k1 = philox.key_words(seed)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_mc_launch(rows.data_ptr(), fixed_host.ctypes.data,
+                                  steps, samples, k0, k1, int(fast_rng),
+                                  out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"fused_mc kernel launch failed: CUDA error {err}")
+    launches["fused_mc"] += 1
+    return out
+
+
+class MonteCarloChiSquare(nn.Module):
+    """The fused Monte-Carlo + chi-square experiment for one model.
+
+    Holds the seed-independent path rows and fixed arrays as float32
+    buffers (the counterpart of computing the path once, bench.py's
+    `precompute_path` call).  `forward(samples, seed, fast_rng=False)`
+    runs one experiment: K1 when the buffers lie on a CUDA device, its
+    plain version on the CPU.  Semantics are ops.ensemble.mc_chi_square
+    with `lagged_measurements=False`.
+    """
+
+    def __init__(self, model: vanilla.Model, state0: vanilla.State,
+                 steps: int, controls=None, hs=None, rs=None,
+                 meas_masks=None, init_spread: bool = True, path=None):
+        super().__init__()
+        n, p = model.f.shape[0], model.h.shape[0]
+        if not (1 <= n <= MAX_N and 1 <= p <= MAX_P):
+            raise ValueError(f"fused kernel takes n <= {MAX_N} and p <= "
+                             f"{MAX_P}, got n={n}, p={p}")
+        if path is None:
+            path = precompute_path(model, state0, steps, controls, hs, rs,
+                                   meas_masks)
+        self.n, self.p = n, p
+        self.tv = path[3] is not None
+        self.ctrl = path[5] is not None
+        l0 = (linalg.chol_or_eigh_sqrt(state0.p) if init_spread
+              else torch.zeros_like(state0.p))
+        fixed = _pack_fixed(model.f, model.noise.sqrt_q, model.h,
+                            model.noise.sqrt_r, state0.x, l0)
+        self.register_buffer("rows", _pack_path(path))
+        self.register_buffer("fixed", fixed)
+        # The kernel takes the fixed array by value as a launch
+        # parameter, so keep a host copy (read once, here).
+        self._fixed_host = fixed.detach().cpu().numpy()
+
+    def _check(self, samples: int):
+        if not 2 <= samples < 2**31:
+            raise ValueError(f"samples must be in [2, 2**31), got {samples}")
+
+    def forward(self, samples: int, seed: int,
+                fast_rng: bool = False) -> ChiSquareResult:
+        self._check(samples)
+        args = (self.n, self.p, self.tv, self.ctrl, samples, seed, fast_rng)
+        if self.rows.is_cuda:
+            parts = _partials_cuda(self.rows, self._fixed_host, *args)
+        elif self.rows.device.type == "cpu":
+            parts = _partials_ref(self.rows, self.fixed, *args)
+        else:
+            raise ValueError(f"no fused_mc path for device {self.rows.device}")
+        return _pool(parts, samples)
+
+    def reference(self, samples: int, seed: int, fast_rng: bool = False,
+                  z0=None, wv=None) -> ChiSquareResult:
+        """The plain PyTorch version of `forward`, on the buffers' device."""
+        self._check(samples)
+        return _pool(_partials_ref(self.rows, self.fixed, self.n, self.p,
+                                   self.tv, self.ctrl, samples, seed,
+                                   fast_rng, z0, wv), samples)
+
+
+def mc_chi_square_fused(model: vanilla.Model, state0: vanilla.State,
+                        samples: int, steps: int, seed: int,
+                        init_spread: bool = True, controls=None, hs=None,
+                        rs=None, meas_masks=None, path=None,
+                        fast_rng: bool = False) -> ChiSquareResult:
+    """Fused-kernel equivalent of ops.ensemble.mc_chi_square
+    (lagged_measurements=False) for any n <= 16, p <= 8, including
+    padded time-varying (hs, rs, meas_masks) schedules and a shared
+    control stream (pallas_mc.py:mc_chi_square_pallas).  `path` takes a
+    precompute_path(...) result.  Unlike the TPU kernel, `samples` need
+    not be a multiple of any tile."""
+    mod = MonteCarloChiSquare(model, state0, steps, controls, hs, rs,
+                              meas_masks, init_spread, path=path)
+    return mod(samples, seed, fast_rng)
+
+
+def mc_chi_square_fused_ref(model: vanilla.Model, state0: vanilla.State,
+                            samples: int, steps: int, seed: int,
+                            init_spread: bool = True, controls=None,
+                            hs=None, rs=None, meas_masks=None, path=None,
+                            fast_rng: bool = False, z0=None,
+                            wv=None) -> ChiSquareResult:
+    """The plain PyTorch version of `mc_chi_square_fused`, on the
+    model's device; `z0`/`wv` optionally replace the Philox draws."""
+    mod = MonteCarloChiSquare(model, state0, steps, controls, hs, rs,
+                              meas_masks, init_spread, path=path)
+    return mod.reference(samples, seed, fast_rng, z0, wv)
+
+
+@functools.lru_cache(maxsize=None)
+def load_sample_normals():
+    """Build (at first use) and load K2."""
+    from . import _build
+
+    lib = _build.load(SOURCE, {"KBLOCK": BLOCK})
+    lib.sample_normals_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.sample_normals_launch.restype = ctypes.c_int
+    return lib
+
+
+def _generator_flag(generator: str) -> bool:
+    if generator not in GENERATORS:
+        raise ValueError(f"unknown generator {generator!r}")
+    return GENERATORS[generator]
+
+
+def sample_normals_ref(count: int, seed: int, generator: str = "box_muller",
+                       device=None) -> torch.Tensor:
+    """Plain PyTorch version of K2: [count] float32, normals 4i..4i+3
+    from counter (i, 0, 0, 0)."""
+    fast = _generator_flag(generator)
+    members = torch.arange(-(-count // 4), device=device)
+    z = philox.normals(seed, members, philox.INIT_DRAW, 4, fast)
+    return z.T.reshape(-1)[:count]
+
+
+def sample_normals(count: int, seed: int, generator: str = "box_muller",
+                   device=None) -> torch.Tensor:
+    """Draw `count` (approximately) standard normals with one of the
+    kernels' generators: "box_muller" (exact) or "clt" (the fast_rng
+    path).  K2 on a CUDA device, the plain version on the CPU
+    (pallas_mc.py:sample_normals_pallas)."""
+    fast = _generator_flag(generator)
+    if not 0 < count < 2**33:
+        raise ValueError(f"count must be in (0, 2**33), got {count}")
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cpu":
+        return sample_normals_ref(count, seed, generator, device)
+    if device.type != "cuda":
+        raise ValueError(f"no sample_normals path for device {device}")
+    lib = load_sample_normals()
+    out = torch.empty(count, dtype=torch.float32, device=device)
+    k0, k1 = philox.key_words(seed)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sample_normals_launch(out.data_ptr(), count, k0, k1,
+                                        int(fast), stream)
+    if err:
+        raise RuntimeError(f"sample_normals kernel launch failed: CUDA error {err}")
+    launches["sample_normals"] += 1
+    return out
