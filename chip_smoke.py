@@ -6,21 +6,25 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `gokalman_tpu_torch/csrc`, holds
-each against its plain PyTorch version, gates the generators'
-statistics, and drives the main path at full size (98,304 Monte-Carlo
-runs x 1,000 steps of the 6-state constant-velocity CKF) through
-`MonteCarloChiSquare`, with both generators.  Every phase raises on
-failure; there is no CPU or plain-version fallback.  The last line of
-standard output is one JSON object with the device; the line before it
-lists each kernel's launches on the main path, its error against the
-plain version and both times.  Without CUDA it exits non-zero and
-prints no result.
+each against its plain PyTorch version (K1 also with a rank's member
+offset), gates the generators' statistics, and drives the main path at
+full size (98,304 Monte-Carlo runs x 1,000 steps of the 6-state
+constant-velocity CKF) through `MonteCarloChiSquare`, with both
+generators.  Then the sharded path, `sharded_mc_chi_square_fused`, at
+the same size: in an NCCL group of one rank, and on two spawned ranks
+of a gloo group on the one card (49,152 members each), each held to
+the one-rank result.  Every phase raises on failure; there is no CPU or
+plain-version fallback.  The last line of standard output is one JSON
+object with the device; the line before it lists each kernel's
+launches on the counted paths, its error against the plain version and
+both times.  Without CUDA it exits non-zero and prints no result.
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 20261016
@@ -34,6 +38,8 @@ K2_TOL = {"box_muller": 1e-5, "clt": 0.0}
 # only f32 rounding differs (summation order, FMA); measured sensitivity
 # of the traces to 1-ulp noise perturbations is ~1e-6 relative.
 K1_RTOL, K1_ATOL = 1e-4, 1e-5
+MEMBER_OFFSET = 12_345 * 256  # K1's member offset check: a far rank's members
+WORLD2 = 2  # ranks of the two-process check on the one card
 REPLACES = {
     "fused_mc": "gokalman_tpu/ops/pallas_mc.py:596",
     "sample_normals": "gokalman_tpu/ops/pallas_mc.py:164",
@@ -229,6 +235,52 @@ def phase_k1_vs_plain(gt, torch, device):
     return worst
 
 
+def phase_k1_offset(gt, torch, device):
+    """K1 with a rank's member offset against its plain version with the
+    same offset, every trace; the offset must change the draws.
+    Returns the largest absolute difference."""
+    from gokalman_tpu_torch.ops import fused_mc
+
+    model, st = main_model(gt, torch, device)
+    mod = fused_mc.MonteCarloChiSquare(model, st, 100)
+    out = mod(8192, SEED, member_offset=MEMBER_OFFSET)
+    ref = mod.reference(8192, SEED, member_offset=MEMBER_OFFSET)
+    base = mod(8192, SEED)
+    torch.cuda.synchronize()
+    check(not torch.equal(out.mean, base.mean),
+          "K1: member_offset left the draws unchanged")
+    return compare_traces(f"cv6 exact 8192x100 member_offset {MEMBER_OFFSET}",
+                          out, ref)
+
+
+def max_ulps(out, ref):
+    """Largest difference of two float32 results, in units of the last
+    place of the larger magnitude."""
+    import numpy as np
+
+    worst = 0.0
+    for a, b in zip(out, ref):
+        a = a.detach().cpu().numpy()
+        b = b.detach().cpu().numpy()
+        ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+        worst = max(worst, float((np.abs(a.astype(np.float64) - b) / ulp).max()))
+    return worst
+
+
+def gate(name, res, n):
+    """The main path's output checks: shapes, finite, NEES/NIS gates."""
+    import torch
+
+    check(res.nees_means.shape == (STEPS,) and res.mean.shape == (STEPS, n),
+          f"{name}: output shapes")
+    check(all(bool(torch.isfinite(a).all()) for a in res), f"{name}: non-finite output")
+    nees = float(res.nees_means[STEPS // 2:].mean())
+    nis = float(res.nis_means[STEPS // 2:].mean())
+    check(5.0 < nees < 7.0, f"{name}: NEES {nees} out of (5, 7)")
+    check(2.5 < nis < 3.5, f"{name}: NIS {nis} out of (2.5, 3.5)")
+    return nees, nis
+
+
 def phase_main_path(gt, torch, device):
     """The counted main-path run: the generator gates (K2),
     then c2d.van_loan -> vanilla.new + noise.awgn -> MonteCarloChiSquare
@@ -251,22 +303,140 @@ def phase_main_path(gt, torch, device):
     for fast in (False, True):
         res = mod(SAMPLES, SEED, fast)
         torch.cuda.synchronize()
-        check(res.nees_means.shape == (STEPS,) and res.mean.shape == (STEPS, 6),
-              "main path: output shapes")
-        check(all(bool(torch.isfinite(a).all()) for a in res),
-              "main path: non-finite output")
-        nees = float(res.nees_means[STEPS // 2:].mean())
-        nis = float(res.nis_means[STEPS // 2:].mean())
+        nees, nis = gate("main path", res, 6)
         log(f"[main path] {SAMPLES}x{STEPS} fast_rng={fast}: tail NEES {nees:.4f} "
             f"(gate 5..7), tail NIS {nis:.4f} (gate 2.5..3.5), "
             f"final stddev {res.stddev[-1].tolist()}")
-        check(5.0 < nees < 7.0, f"main path NEES {nees} out of (5, 7)")
-        check(2.5 < nis < 3.5, f"main path NIS {nis} out of (2.5, 3.5)")
     counts = dict(fused_mc.launches)
     log(f"[main path] wall {time.perf_counter() - t_main:.2f} s, launches {counts}")
     for name, count in counts.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
     return mod, counts
+
+
+def sharded_times(mod, model, st, samples, reps):
+    """CUDA-event milliseconds of the sharded path's parts on this rank,
+    `reps` calls each after one warm-up: the entry call (which builds
+    its module), `sharded_forward` on the module `mod` built once, the
+    module's `forward` alone (no pooling), the module's construction
+    (with the path precompute, and from a precomputed path) and the
+    pooling alone.  The entry call and `sharded_forward` must agree
+    bitwise.  Every rank of the group calls this in step."""
+    import torch
+    import torch.distributed as dist
+
+    from gokalman_tpu_torch.ops import fused_mc
+    from gokalman_tpu_torch.parallel import mesh
+
+    offset = dist.get_rank() * samples
+    path = fused_mc.precompute_path(model, st, STEPS)
+    parts = mod.partials(samples, SEED, member_offset=offset)
+    calls = {
+        "entry": lambda: mesh.sharded_mc_chi_square_fused(model, st, samples, STEPS, SEED),
+        "sharded_forward": lambda: mesh.sharded_forward(mod, samples, SEED),
+        "forward": lambda: mod(samples, SEED, member_offset=offset),
+        "build": lambda: fused_mc.MonteCarloChiSquare(model, st, STEPS),
+        "build_from_path": lambda: fused_mc.MonteCarloChiSquare(model, st, STEPS,
+                                                                path=path),
+        "pool": lambda: fused_mc.pool(parts, samples, dist.group.WORLD),
+    }
+    times, outs = {}, {}
+    for name, fn in calls.items():
+        times[name], outs[name] = cuda_ms(fn, reps, fn)
+    check(all(torch.equal(a, b) for a, b in zip(outs["entry"], outs["sharded_forward"])),
+          "sharded_mc_chi_square_fused and sharded_forward disagree")
+    return times
+
+
+def fmt_times(t):
+    return (f"entry call {t['entry']:.3f} ms, sharded_forward {t['sharded_forward']:.3f} ms, "
+            f"forward alone {t['forward']:.3f} ms, module construction {t['build']:.3f} ms "
+            f"(from a precomputed path {t['build_from_path']:.3f} ms), "
+            f"pooling {t['pool']:.4f} ms (CUDA events)")
+
+
+def phase_sharded_world1(gt, torch, device):
+    """The counted sharded path: sharded_mc_chi_square_fused at full size
+    in an NCCL group of one rank.  It must pass the gates and equal
+    MonteCarloChiSquare.forward on the same seed.  Returns the result
+    and K1's launches in the counted run."""
+    import torch.distributed as dist
+
+    from gokalman_tpu_torch.ops import fused_mc
+    from gokalman_tpu_torch.parallel import mesh
+
+    model, st = main_model(gt, torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            fused_mc.reset_launches()
+            res = mesh.sharded_mc_chi_square_fused(model, st, SAMPLES, STEPS, SEED)
+            torch.cuda.synchronize()
+            launches = fused_mc.launches["fused_mc"]
+            check(launches > 0, "kernel fused_mc was not launched on the sharded path")
+            nees, nis = gate("sharded world 1", res, 6)
+            mod = fused_mc.MonteCarloChiSquare(model, st, STEPS)
+            ref = mod(SAMPLES, SEED)
+            ulps = max_ulps(res, ref)
+            check(ulps <= 1.0, f"sharded world 1 differs from forward by {ulps} ulp")
+            times = sharded_times(mod, model, st, SAMPLES, 5)
+        finally:
+            dist.destroy_process_group()
+    log(f"[sharded, world 1] nccl {SAMPLES}x{STEPS}: tail NEES {nees:.4f}, "
+        f"NIS {nis:.4f}; vs MonteCarloChiSquare.forward: {ulps:g} ulp "
+        f"(bitwise equal: {all(torch.equal(a, b) for a, b in zip(res, ref))}); "
+        f"K1 launches {launches}")
+    log(f"[time] sharded world 1: {fmt_times(times)}")
+    return res, launches
+
+
+def sharded_rank(samples_local):
+    """One rank of the two-rank check, in its own process: its model on
+    the one card, K1 on its `samples_local` members, pooled over the
+    group.  Returns its result, its K1 launches in the counted run and
+    its times (`sharded_times`)."""
+    import torch
+
+    import gokalman_tpu_torch as gt
+    from gokalman_tpu_torch.ops import fused_mc
+    from gokalman_tpu_torch.parallel import mesh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    model, st = main_model(gt, torch, device)
+    fused_mc.reset_launches()
+    res = mesh.sharded_mc_chi_square_fused(model, st, samples_local, STEPS, SEED)
+    torch.cuda.synchronize()
+    launches = fused_mc.launches["fused_mc"]
+    mod = fused_mc.MonteCarloChiSquare(model, st, STEPS)
+    return {"result": res, "launches": launches,
+            "times": sharded_times(mod, model, st, samples_local, 3)}
+
+
+def phase_sharded_world2(world1):
+    """Two spawned ranks of a gloo group on the one card, SAMPLES / 2
+    members each: every rank's pooled result equals the one-rank result
+    to 1 float32 ulp, and K1 launched on both.  Returns the ranks' K1
+    launches in their counted runs."""
+    import torch
+
+    from gokalman_tpu_torch.parallel import _launch
+
+    local = SAMPLES // WORLD2
+    t0 = time.perf_counter()
+    outs = _launch.spawn(sharded_rank, [(local,)] * WORLD2, timeout=600)
+    wall = time.perf_counter() - t0
+    for rank, out in enumerate(outs):
+        check(out["launches"] > 0, f"K1 was not launched on rank {rank}")
+        ulps = max_ulps(out["result"], world1)
+        log(f"[sharded, world 2] gloo rank {rank}: {local} members, K1 launches "
+            f"{out['launches']}, vs world 1: {ulps:g} ulp; {fmt_times(out['times'])}")
+        check(ulps <= 1.0, f"world 2 rank {rank} differs from world 1 by {ulps} ulp")
+        check(all(torch.equal(a, b) for a, b in zip(out["result"], outs[0]["result"])),
+              f"world 2 ranks 0 and {rank} disagree")
+    log(f"[sharded, world 2] wall {wall:.1f} s host clock (spawn, build load, runs)")
+    return [out["launches"] for out in outs]
 
 
 def phase_full_size(mod, device):
@@ -332,8 +502,12 @@ def run():
     gt, torch, device = setup()
     phase_build()
     max_err = {"sample_normals": phase_k2_vs_plain(torch, device),
-               "fused_mc": phase_k1_vs_plain(gt, torch, device)}
+               "fused_mc": max(phase_k1_vs_plain(gt, torch, device),
+                               phase_k1_offset(gt, torch, device))}
     mod, counts = phase_main_path(gt, torch, device)
+    world1, launches1 = phase_sharded_world1(gt, torch, device)
+    launches2 = phase_sharded_world2(world1)
+    counts["fused_mc"] += launches1 + sum(launches2)
     times, full_err = phase_full_size(mod, device)
     max_err["fused_mc"] = max(max_err["fused_mc"], full_err)
     phase_device_times(mod, device)
@@ -357,7 +531,7 @@ def run():
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)  # the run uses one card
 
 
 def main():

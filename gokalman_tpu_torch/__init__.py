@@ -6,26 +6,36 @@ functions on tensors, NamedTuples of tensors for the model/state
 records, explicit `device=`/`dtype=` where tensors are created, and
 `torch.Generator` in place of `jax.random` keys.
 
-This slice covers the fused Monte-Carlo + chi-square main path:
+The port covers the fused Monte-Carlo + chi-square main path:
 `c2d.van_loan` -> `filters.vanilla.new` + `noise.awgn` ->
 `ops.fused_mc.MonteCarloChiSquare` (hand-written CUDA kernel on a GPU,
-its plain PyTorch version on the CPU) -> `ops.ensemble.ChiSquareResult`.
+its plain PyTorch version on the CPU) -> `ops.ensemble.ChiSquareResult`;
+its sharded form over a torch.distributed group
+(`parallel.mesh.sharded_mc_chi_square_fused`); and the reference's
+Monte-Carlo / chi-square harness (`montecarlo`, `chisquare`, `truth`,
+`types`).
 
 Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
 """
 
-from . import c2d, convert, linalg, noise, ops, workloads
+from . import (c2d, chisquare, convert, linalg, montecarlo, noise, ops,
+               parallel, truth, types, workloads)
 from .filters import vanilla
 
 __version__ = "0.1.0"
 
 __all__ = [
     "c2d",
+    "chisquare",
     "convert",
     "linalg",
+    "montecarlo",
     "noise",
     "ops",
+    "parallel",
+    "truth",
+    "types",
     "vanilla",
     "workloads",
 ]

@@ -1,17 +1,26 @@
-"""Carry a JAX-package model and state across to the port.
+"""Carry JAX-package records across to the port.
 
-The arguments are the fields of a gokalman_tpu `vanilla.Model` /
-`State` as numpy arrays (`np.asarray(model.f)`, ...).  The sampling
-factors `sqrt_q`/`sqrt_r` are carried over as they are, never
-recomputed, so both packages sample through identical factors.
+The arguments are the fields of a gokalman_tpu record as numpy arrays
+(`np.asarray(model.f)`, ...):
+
+- `model_from_numpy` / `state_from_numpy`: a `vanilla.Model` / `State`.
+  The sampling factors `sqrt_q`/`sqrt_r` are carried over as they are,
+  never recomputed, so both packages sample through identical factors.
+- `estimate_from_numpy`: a `vanilla.Estimate`, of any leading shape.
+- `runs_from_numpy`: a `montecarlo.MonteCarloRuns` (its estimate
+  fields [S, T, ...], runs, steps), so that both packages can be fed
+  one set of runs (e.g. `chisquare.chi_square`).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
-from .filters.vanilla import Model, State
+from .filters.vanilla import Estimate, Model, State
+from .montecarlo import MonteCarloRuns
 from .noise import Noise
 
 
@@ -34,3 +43,21 @@ def state_from_numpy(x, p, *, dtype=torch.float64, device=None) -> State:
     """Port-side `State` (step counter 0) from a JAX state's x and P."""
     k = torch.zeros((), dtype=torch.int32, device=device)
     return State(_t(x, dtype, device), _t(p, dtype, device), k)
+
+
+def estimate_from_numpy(state, measurement, innovation, covariance,
+                        pred_covariance, gain, *, dtype=torch.float64,
+                        device=None) -> Estimate:
+    """Port-side `Estimate` from a JAX `vanilla.Estimate`'s fields, in
+    field order (`*map(np.asarray, est)`)."""
+    return Estimate(*(_t(a, dtype, device) for a in (
+        state, measurement, innovation, covariance, pred_covariance, gain)))
+
+
+def runs_from_numpy(estimate: Sequence, runs: int, steps: int, *,
+                    dtype=torch.float64, device=None) -> MonteCarloRuns:
+    """Port-side `MonteCarloRuns` from a JAX one: `estimate` is its
+    estimate's six fields as arrays ([S, T, ...]), then runs and steps."""
+    return MonteCarloRuns(
+        estimate_from_numpy(*estimate, dtype=dtype, device=device),
+        int(runs), int(steps))

@@ -37,8 +37,11 @@
 //
 // Random numbers: Philox4x32-10 keyed by the 64-bit seed, counter
 // (member, draw, group, 0) with draw 0 for the initial state and t + 1
-// for step t.  This replaces the TPU kernel's prng_seed(seed + tile_id),
-// under which neighbouring tiles and devices shared streams.
+// for step t.  K1's member word is the global member index,
+// member_offset + the thread's index in the launch, so the ranks of a
+// sharded run (parallel/mesh.py) draw the members of one unsharded run.
+// This replaces the TPU kernel's prng_seed(seed + tile_id), under which
+// neighbouring tiles and devices shared streams.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -174,8 +177,8 @@ template <int N, int P, bool TV, bool CTRL, bool FAST>
 __global__ void __launch_bounds__(KBLOCK)
 fused_mc_kernel(const float* __restrict__ path,
                 const __grid_constant__ Fixed<Layout<N, P, TV, CTRL>::FIXED> fx,
-                int steps, int samples, uint32_t k0, uint32_t k1,
-                float* __restrict__ partials) {
+                int steps, int samples, uint32_t member_offset, uint32_t k0,
+                uint32_t k1, float* __restrict__ partials) {
   using L = Layout<N, P, TV, CTRL>;
   constexpr int ROWS = 2 + 2 * N;
   constexpr int WARPS = KBLOCK / 32;
@@ -186,6 +189,9 @@ fused_mc_kernel(const float* __restrict__ path,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int member = blockIdx.x * KBLOCK + tid;
+  // Philox member word: the global index.  `valid`, `count` and the
+  // block partials keep the index in this launch.
+  const uint32_t ctr = member_offset + static_cast<uint32_t>(member);
   // Members past `samples` run along (they take part in the barriers)
   // and add zeros to every sum.
   const bool valid = member < samples;
@@ -196,7 +202,7 @@ fused_mc_kernel(const float* __restrict__ path,
   float xt[N], xe[N];
   {
     float z[N];
-    draw_normals<N, FAST>(static_cast<uint32_t>(member), 0u, k0, k1, z);
+    draw_normals<N, FAST>(ctr, 0u, k0, k1, z);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
       float acc = fx.v[L::X0 + i];
@@ -210,8 +216,7 @@ fused_mc_kernel(const float* __restrict__ path,
   for (int t = 0; t < steps; ++t) {
     const float* row = path + static_cast<size_t>(t) * L::ROW;
     float d[N + P];  // w = d[0:N], v = d[N:N+P]
-    draw_normals<N + P, FAST>(static_cast<uint32_t>(member),
-                              static_cast<uint32_t>(t + 1), k0, k1, d);
+    draw_normals<N + P, FAST>(ctr, static_cast<uint32_t>(t + 1), k0, k1, d);
 
     float xn[N], xp[N];
 #pragma unroll
@@ -363,19 +368,21 @@ extern "C" int fused_mc_fixed_len() { return KLayout::FIXED; }
 // `fixed_host` is a host array of fused_mc_fixed_len() floats, passed to
 // the kernel by value (it lands in the constant bank).
 extern "C" int fused_mc_launch(const float* path, const float* fixed_host,
-                               int steps, int samples, uint32_t k0,
-                               uint32_t k1, int fast_rng, float* partials,
-                               void* stream) {
+                               int steps, int samples, uint32_t member_offset,
+                               uint32_t k0, uint32_t k1, int fast_rng,
+                               float* partials, void* stream) {
   Fixed<KLayout::FIXED> fx;
   for (int i = 0; i < KLayout::FIXED; ++i) fx.v[i] = fixed_host[i];
   const dim3 grid((samples + KBLOCK - 1) / KBLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fast_rng) {
     fused_mc_kernel<KN, KP, KTV != 0, KCTRL != 0, true>
-        <<<grid, KBLOCK, 0, s>>>(path, fx, steps, samples, k0, k1, partials);
+        <<<grid, KBLOCK, 0, s>>>(path, fx, steps, samples, member_offset, k0,
+                                 k1, partials);
   } else {
     fused_mc_kernel<KN, KP, KTV != 0, KCTRL != 0, false>
-        <<<grid, KBLOCK, 0, s>>>(path, fx, steps, samples, k0, k1, partials);
+        <<<grid, KBLOCK, 0, s>>>(path, fx, steps, samples, member_offset, k0,
+                                 k1, partials);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,10 @@ the ensemble cheap, as in the JAX package:
 
 Ensembles are [n, S] (state rows, members in columns), as in the JAX
 package.  `mc_chi_square` is the all-plain oracle of the fused kernel
-path (ops.fused_mc).
+path (ops.fused_mc); `filter_bank` runs S measurement streams through
+one shared covariance path; `mc_stats` is the pure-predictor ensemble's
+mean and stddev alone; `pool_moments` pools ensemble moments over the
+ranks of a torch.distributed group (ops.fused_mc, parallel.mesh).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import linalg
 from ..filters import vanilla
@@ -31,6 +35,26 @@ class ChiSquareResult(NamedTuple):
     nees_means: torch.Tensor  # [T]
     mean: torch.Tensor  # [T, n] truth-ensemble mean per step
     stddev: torch.Tensor  # [T, n] truth-ensemble stddev (ddof=1) per step
+
+
+def pool_moments(count: int, sums: torch.Tensor, m2: torch.Tensor, group):
+    """Pool one rank's float64 moments of its `count` members over the
+    ranks of a torch.distributed `group`: the global (count, sums, M2).
+
+    `sums` [k, ...] are sums over the rank's members; `m2` holds, for the
+    last len(m2) rows of `sums`, the sum of squared deviations from the
+    rank's own mean.  Two all_reduce sums: Σ count and Σ sums, then
+    Σ [M2_l + m_l (x̄_l − x̄)²], the pooled M2 without the cancellation of
+    Σx² − N·x̄² where |x̄| ≫ σ.  all_reduce only: gloo reduces CUDA
+    tensors but does not all_gather them."""
+    flat = torch.cat([sums.reshape(-1), sums.new_tensor([count])])
+    dist.all_reduce(flat, group=group)
+    total, tot = flat[-1], flat[:-1].view_as(sums)
+    k = m2.shape[0]
+    dev = sums[-k:] / count - tot[-k:] / total
+    m2 = m2 + count * dev * dev
+    dist.all_reduce(m2, group=group)
+    return total, tot, m2
 
 
 def _eye(n, like):
@@ -190,6 +214,46 @@ def _covariance_path_sqrt(model: vanilla.Model, p0, steps=None, hs=None,
     return tuple(torch.stack(leaf) for leaf in zip(*out))
 
 
+@linalg.highp
+def filter_bank(model: vanilla.Model, state0: vanilla.State, measurements,
+                controls=None, hs=None, rs=None, meas_masks=None):
+    """Bank of S independent CKFs sharing one (possibly time-varying)
+    model: S measurement streams share ONE covariance path and the
+    per-stream work is a batched matvec recursion.  Stream for stream
+    equal to vanilla.run with the same padded (hs, rs, meas_masks)
+    schedule.
+
+    measurements: [T, p, S]; controls: [T, m] (shared) or None.
+    Returns (states [T, n, S], innovations [T, p, S],
+    (k_path, s_inv_path, p_inv_path) each [T, ...]).
+    """
+    f, g = model.f, model.g
+    measurements = torch.as_tensor(measurements, dtype=f.dtype, device=f.device)
+    if hs is None and rs is None:
+        r = model.noise.r
+        rs = r.expand((measurements.shape[0],) + r.shape)
+    hs, rs, _ = _masked_schedule(model, hs, rs, meas_masks)
+    if meas_masks is not None:
+        m = torch.as_tensor(meas_masks, device=f.device).to(f.dtype)
+        measurements = measurements * m[..., None]
+    gus = None
+    if g is not None and controls is not None:
+        gus = torch.as_tensor(controls, dtype=f.dtype, device=f.device) @ g.T
+
+    path = _covariance_path_tv(model, state0.p, hs, rs)
+    x = state0.x[:, None].expand(f.shape[0], measurements.shape[-1])
+    states, innovs = [], []
+    for k, (y, h_k, k_gain) in enumerate(zip(measurements, hs, path[0])):
+        x_pred = f @ x
+        if gus is not None:
+            x_pred = x_pred + gus[k][:, None]
+        innov = y - h_k @ x_pred  # [p, S]
+        x = x_pred + k_gain @ innov
+        states.append(x)
+        innovs.append(innov)
+    return torch.stack(states), torch.stack(innovs), path
+
+
 def covariance_path(model: vanilla.Model, p0, steps: int, hs=None, rs=None,
                     meas_masks=None, cov_path: str = "moment"):
     """Per-step (K, S⁻¹, (P⁺)⁻¹) for the time-invariant model or a
@@ -223,6 +287,7 @@ def mc_chi_square(
     rs=None,
     meas_masks=None,
     cov_path: str = "moment",
+    members: slice = slice(None),
 ) -> ChiSquareResult:
     """Fused Monte-Carlo truth generation + chi-square replay.
 
@@ -235,6 +300,11 @@ def mc_chi_square(
     lag (y from the pre-predict truth, vanilla.go:155-157); False is
     the consistent test that calibrates NEES to n.  `hs`/`rs`/
     `meas_masks` give a padded time-varying measurement schedule.
+
+    `members` keeps a slice of the `samples` members: every draw is made
+    for all of them in the same order and the kept columns are used, so
+    the slice's runs are those columns of the full run and the results
+    are the slice's own statistics (parallel.mesh's sharded oracle).
     """
     n = state0.x.shape[0]
     p = model.h.shape[0]
@@ -249,10 +319,11 @@ def mc_chi_square(
         return torch.randn(shape, generator=generator, dtype=dtype,
                            device=device)
 
-    x_t = state0.x[:, None].expand(n, samples).clone()
+    kept = len(range(samples)[members])
+    x_t = state0.x[:, None].expand(n, kept).clone()
     if init_spread:
-        x_t = x_t + linalg.chol_or_eigh_sqrt(state0.p) @ randn(n, samples)
-    x_e = state0.x[:, None].expand(n, samples).clone()
+        x_t = x_t + linalg.chol_or_eigh_sqrt(state0.p) @ randn(n, samples)[:, members]
+    x_e = state0.x[:, None].expand(n, kept).clone()
     gus = None
     if model.g is not None and controls is not None:
         gus = torch.as_tensor(controls, dtype=dtype, device=device) @ model.g.T
@@ -261,8 +332,8 @@ def mc_chi_square(
     for k in range(steps):
         h_t = h if hs_m is None else hs_m[k]
         lr_t = lr if lrs is None else lrs[k]
-        w = lq @ randn(n, samples)
-        v = lr_t @ randn(p, samples)
+        w = lq @ randn(n, samples)[:, members]
+        v = lr_t @ randn(p, samples)[:, members]
         gu = 0.0 if gus is None else gus[k][:, None]
 
         # --- truth (pure predictor, vanilla.go:138-146, 170-179) ---
@@ -285,8 +356,39 @@ def mc_chi_square(
 
         # --- MC ensemble stats, two-pass (montecarlo.go:18-59) ---
         mean = torch.mean(x_t, dim=1)
-        var = torch.sum((x_t - mean[:, None]) ** 2, dim=1) / (samples - 1)
+        var = torch.sum((x_t - mean[:, None]) ** 2, dim=1) / (kept - 1)
         mean_l.append(mean)
         dev_l.append(torch.sqrt(var))
     return ChiSquareResult(torch.stack(nis_l), torch.stack(nees_l),
                            torch.stack(mean_l), torch.stack(dev_l))
+
+
+@linalg.highp
+def mc_stats(model: vanilla.Model, state0: vanilla.State, samples: int,
+             steps: int, generator: Optional[torch.Generator] = None,
+             controls=None):
+    """Pure-predictor Monte-Carlo ensemble: per-step mean and ddof=1
+    stddev only (the montecarlo.go:18-59 outputs), [T, n] each, with
+    nothing [S, T]-shaped kept.  Step k draws one [n, S] block of
+    normals from `generator`."""
+    n = state0.x.shape[0]
+    dtype, device = state0.x.dtype, state0.x.device
+    f, lq = model.f, model.noise.sqrt_q
+    gus = None
+    if model.g is not None and controls is not None:
+        gus = torch.as_tensor(controls, dtype=dtype, device=device) @ model.g.T
+
+    x = state0.x[:, None].expand(n, samples)
+    means, devs = [], []
+    for k in range(steps):
+        z = torch.randn((n, samples), generator=generator, dtype=dtype,
+                        device=device)
+        x = f @ x
+        if gus is not None:
+            x = x + gus[k][:, None]
+        x = x + lq @ z
+        mean = torch.mean(x, dim=1)
+        means.append(mean)
+        devs.append(torch.sqrt(torch.sum((x - mean[:, None]) ** 2, dim=1)
+                               / (samples - 1)))
+    return torch.stack(means), torch.stack(devs)

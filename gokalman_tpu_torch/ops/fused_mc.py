@@ -36,7 +36,7 @@ from torch import nn
 from .. import linalg
 from ..filters import vanilla
 from . import philox
-from .ensemble import ChiSquareResult, covariance_path
+from .ensemble import ChiSquareResult, covariance_path, pool_moments
 
 BLOCK = 256  # ensemble members per CUDA block (KBLOCK in the kernel)
 MAX_N, MAX_P = 16, 8  # register-sane bound of the per-thread kernel
@@ -129,28 +129,46 @@ def _block_stats(nees, nis, x_t, samples: int) -> torch.Tensor:
     return torch.cat([sums, (dev * dev).sum(-1)]).T
 
 
-def _pool(partials: torch.Tensor, samples: int) -> ChiSquareResult:
-    """Pool [blocks, 2 + 2n, T] block partials into per-step means and
-    the ddof=1 stddev (Chan's parallel variance, in float64)."""
+def _moments(partials: torch.Tensor, samples: int):
+    """Float64 (sums [2 + n, T] of NEES, NIS and x_t; M2 [n, T], the sum
+    of squared deviations from the mean) of [blocks, 2 + 2n, T] block
+    partials, blocks combined with Chan's parallel variance."""
     n = (partials.shape[1] - 2) // 2
     tot = partials.to(torch.float64)
     counts = _block_counts(samples, tot.device).to(torch.float64)[:, None, None]
-    sums = tot[:, 2:2 + n]  # [B, n, T]
-    mean = sums.sum(0) / samples
-    m2 = tot[:, 2 + n:].sum(0) + (counts * (sums / counts - mean) ** 2).sum(0)
-    out = ChiSquareResult(
-        nis_means=tot[:, 1].sum(0) / samples,
-        nees_means=tot[:, 0].sum(0) / samples,
-        mean=mean.T,
-        stddev=torch.sqrt(m2 / (samples - 1)).T,
-    )
-    return ChiSquareResult(*(a.to(torch.float32) for a in out))
+    sums = tot[:, :2 + n].sum(0)
+    x_sums = tot[:, 2:2 + n]  # [B, n, T]
+    m2 = (tot[:, 2 + n:].sum(0)
+          + (counts * (x_sums / counts - sums[2:] / samples) ** 2).sum(0))
+    return sums, m2
+
+
+def _result(sums, m2, samples, dtype=torch.float32) -> ChiSquareResult:
+    """ChiSquareResult of `samples` members' float64 moments (`_moments`)."""
+    out = ChiSquareResult(nis_means=sums[1] / samples,
+                          nees_means=sums[0] / samples,
+                          mean=(sums[2:] / samples).T,
+                          stddev=torch.sqrt(m2 / (samples - 1)).T)
+    return ChiSquareResult(*(a.to(dtype) for a in out))
+
+
+def pool(partials: torch.Tensor, samples: int, group=None) -> ChiSquareResult:
+    """Pool [blocks, 2 + 2n, T] block partials of `samples` members into
+    per-step means and the ddof=1 stddev (Chan's parallel variance, in
+    float64).  With a torch.distributed `group`, each rank passes its
+    own partials, the moments are pooled over the ranks too
+    (ensemble.pool_moments), and every rank gets the group's result."""
+    sums, m2 = _moments(partials, samples)
+    if group is not None:
+        samples, sums, m2 = pool_moments(samples, sums, m2, group)
+    return _result(sums, m2, samples)
 
 
 @linalg.highp
 def _partials_ref(rows, fixed, n, p, tv, ctrl, samples, seed, fast_rng,
-                  z0=None, wv=None) -> torch.Tensor:
-    """Plain PyTorch version of K1: [blocks, 2 + 2n, T] float32 partials.
+                  member_offset=0, z0=None, wv=None) -> torch.Tensor:
+    """Plain PyTorch version of K1: [blocks, 2 + 2n, T] float32 partials
+    of the members member_offset ... member_offset + samples - 1.
 
     `z0` [n, S] and `wv` [T, n+p, S] replace the Philox draws when
     given (the tests feed in the JAX interpreter's stubbed draws).
@@ -158,7 +176,7 @@ def _partials_ref(rows, fixed, n, p, tv, ctrl, samples, seed, fast_rng,
     dev = rows.device
     lay = _layout(n, p, tv, ctrl)
     f, lq, h, lr, x0, l0 = _unpack_fixed(fixed, n, p)
-    members = torch.arange(samples, device=dev)
+    members = torch.arange(member_offset, member_offset + samples, device=dev)
     if z0 is None:
         z0 = philox.normals(seed, members, philox.INIT_DRAW, n, fast_rng)
     x_t = x0[:, None] + l0 @ z0.to(dev, torch.float32)
@@ -195,8 +213,8 @@ def load_fused_mc(n: int, p: int, tv: bool, ctrl: bool):
                                "KCTRL": int(ctrl), "KBLOCK": BLOCK})
     lib.fused_mc_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]
     lib.fused_mc_launch.restype = ctypes.c_int
     lib.fused_mc_row_len.restype = ctypes.c_int
     lib.fused_mc_fixed_len.restype = ctypes.c_int
@@ -207,7 +225,7 @@ def load_fused_mc(n: int, p: int, tv: bool, ctrl: bool):
 
 
 def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
-                   seed, fast_rng) -> torch.Tensor:
+                   seed, fast_rng, member_offset=0) -> torch.Tensor:
     """Launch K1; [blocks, 2 + 2n, T] float32 partials on rows.device."""
     lay = _layout(n, p, tv, ctrl)
     if rows.dtype != torch.float32 or not rows.is_contiguous() \
@@ -224,8 +242,8 @@ def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_mc_launch(rows.data_ptr(), fixed_host.ctypes.data,
-                                  steps, samples, k0, k1, int(fast_rng),
-                                  out.data_ptr(), stream)
+                                  steps, samples, member_offset, k0, k1,
+                                  int(fast_rng), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fused_mc kernel launch failed: CUDA error {err}")
     launches["fused_mc"] += 1
@@ -241,6 +259,12 @@ class MonteCarloChiSquare(nn.Module):
     runs one experiment: K1 when the buffers lie on a CUDA device, its
     plain version on the CPU.  Semantics are ops.ensemble.mc_chi_square
     with `lagged_measurements=False`.
+
+    `member_offset` makes the run's members the global members
+    member_offset ... member_offset + samples - 1 of the seed's stream,
+    and a torch.distributed `group` pools the statistics over its ranks
+    (`pool`): the ranks of a sharded run take disjoint offsets
+    (parallel.mesh.sharded_forward).
     """
 
     def __init__(self, model: vanilla.Model, state0: vanilla.State,
@@ -267,29 +291,49 @@ class MonteCarloChiSquare(nn.Module):
         # parameter, so keep a host copy (read once, here).
         self._fixed_host = fixed.detach().cpu().numpy()
 
-    def _check(self, samples: int):
+    def _check(self, samples: int, member_offset: int):
         if not 2 <= samples < 2**31:
             raise ValueError(f"samples must be in [2, 2**31), got {samples}")
+        if not 0 <= member_offset <= 2**31 - samples:
+            raise ValueError(f"member_offset + samples must be in [samples, "
+                             f"2**31], got {member_offset} + {samples}")
 
-    def forward(self, samples: int, seed: int,
-                fast_rng: bool = False) -> ChiSquareResult:
-        self._check(samples)
-        args = (self.n, self.p, self.tv, self.ctrl, samples, seed, fast_rng)
+    def partials(self, samples: int, seed: int, fast_rng: bool = False,
+                 member_offset: int = 0) -> torch.Tensor:
+        """[blocks, 2 + 2n, T] float32 block partials of one experiment:
+        K1 on a CUDA device, its plain version on the CPU."""
+        self._check(samples, member_offset)
+        args = (self.n, self.p, self.tv, self.ctrl, samples, seed, fast_rng,
+                member_offset)
         if self.rows.is_cuda:
-            parts = _partials_cuda(self.rows, self._fixed_host, *args)
-        elif self.rows.device.type == "cpu":
-            parts = _partials_ref(self.rows, self.fixed, *args)
-        else:
-            raise ValueError(f"no fused_mc path for device {self.rows.device}")
-        return _pool(parts, samples)
+            return _partials_cuda(self.rows, self._fixed_host, *args)
+        if self.rows.device.type == "cpu":
+            return _partials_ref(self.rows, self.fixed, *args)
+        raise ValueError(f"no fused_mc path for device {self.rows.device}")
+
+    def reference_partials(self, samples: int, seed: int,
+                           fast_rng: bool = False, member_offset: int = 0,
+                           z0=None, wv=None) -> torch.Tensor:
+        """The plain PyTorch version of `partials`, on the buffers'
+        device; `z0`/`wv` optionally replace the Philox draws."""
+        self._check(samples, member_offset)
+        return _partials_ref(self.rows, self.fixed, self.n, self.p, self.tv,
+                             self.ctrl, samples, seed, fast_rng,
+                             member_offset, z0, wv)
+
+    def forward(self, samples: int, seed: int, fast_rng: bool = False,
+                member_offset: int = 0, group=None) -> ChiSquareResult:
+        return pool(self.partials(samples, seed, fast_rng, member_offset),
+                    samples, group)
 
     def reference(self, samples: int, seed: int, fast_rng: bool = False,
-                  z0=None, wv=None) -> ChiSquareResult:
-        """The plain PyTorch version of `forward`, on the buffers' device."""
-        self._check(samples)
-        return _pool(_partials_ref(self.rows, self.fixed, self.n, self.p,
-                                   self.tv, self.ctrl, samples, seed,
-                                   fast_rng, z0, wv), samples)
+                  member_offset: int = 0, z0=None, wv=None,
+                  group=None) -> ChiSquareResult:
+        """The plain PyTorch version of `forward`, on the buffers' device;
+        `z0`/`wv` optionally replace the Philox draws."""
+        return pool(self.reference_partials(samples, seed, fast_rng,
+                                            member_offset, z0, wv),
+                    samples, group)
 
 
 def mc_chi_square_fused(model: vanilla.Model, state0: vanilla.State,
@@ -318,7 +362,7 @@ def mc_chi_square_fused_ref(model: vanilla.Model, state0: vanilla.State,
     model's device; `z0`/`wv` optionally replace the Philox draws."""
     mod = MonteCarloChiSquare(model, state0, steps, controls, hs, rs,
                               meas_masks, init_spread, path=path)
-    return mod.reference(samples, seed, fast_rng, z0, wv)
+    return mod.reference(samples, seed, fast_rng, z0=z0, wv=wv)
 
 
 @functools.lru_cache(maxsize=None)

@@ -322,7 +322,7 @@ def test_pool_matches_two_pass_stddev():
     nees = torch.as_tensor(rng.random(samples), dtype=F32)
     part = fused_mc._block_stats(nees, 2 * nees, x, samples)
     assert part.shape == (4, 8)
-    res = fused_mc._pool(part[..., None], samples)
+    res = fused_mc.pool(part[..., None], samples)
     x64 = x.double()
     np.testing.assert_allclose(_np(res.mean[0]), _np(x64.mean(1)), rtol=1e-6)
     np.testing.assert_allclose(_np(res.stddev[0]), _np(x64.std(1)), rtol=1e-4)
