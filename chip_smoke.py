@@ -5,27 +5,36 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from `gokalman_tpu_torch/csrc`, holds
+It builds the port's CUDA kernels from `gokalman_tpu_torch/csrc` (all
+specialisations at once, with nvcc's ptxas report and, where the
+toolkit has `cuobjdump`, K1's SASS instructions per member-step), holds
 each against its plain PyTorch version (K1 also with a rank's member
-offset), gates the generators' statistics, and drives the main path at
-full size (98,304 Monte-Carlo runs x 1,000 steps of the 6-state
-constant-velocity CKF) through `MonteCarloChiSquare`, with both
-generators.  Then the sharded path, `sharded_mc_chi_square_fused`, at
-the same size: in an NCCL group of one rank, and on two spawned ranks
-of a gloo group on the one card (49,152 members each), each held to
-the one-rank result.  Every phase raises on failure; there is no CPU or
+offset, on the jerk-car tv + control schedule and at n = 16), gates the
+generators' statistics, and drives the main path at full size (98,304
+Monte-Carlo runs x 1,000 steps of the 6-state constant-velocity CKF)
+through `MonteCarloChiSquare`, with both generators, its model built
+with no `device=` (the port's entry points default to the card).  Then
+the sharded path, `sharded_mc_chi_square_fused`, at the same size: in
+an NCCL group of one rank, and on two spawned ranks of a gloo group on
+the one card (49,152 members each), each held to the one-rank result.
+Last, the kernels' times beside their plain versions, `torch.randn`
+for K2 and each kernel's bound, and K1's device time with its shares of
+the bounds.  Every phase raises on failure; there is no CPU or
 plain-version fallback.  The last line of standard output is one JSON
 object with the device; the line before it lists each kernel's
-launches on the counted paths, its error against the plain version and
-both times.  Without CUDA it exits non-zero and prints no result.
+launches on the counted paths, its error against the plain version, its
+times and its bound.  Without CUDA it exits non-zero and prints no
+result.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 20261016
 SAMPLES, STEPS = 98_304, 1_000  # bench.py's main-path shape
@@ -44,6 +53,16 @@ REPLACES = {
     "fused_mc": "gokalman_tpu/ops/pallas_mc.py:596",
     "sample_normals": "gokalman_tpu/ops/pallas_mc.py:164",
 }
+# K1 specialisations built and checked: (n, p, tv, ctrl).  The main
+# path's cv6, the jerk-car's tv + control schedule, and the largest
+# state the kernel takes.
+K1_SPECS = ((6, 3, False, False), (4, 2, True, True), (16, 8, True, True))
+# Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): FP32 outside
+# the tensor cores, and HBM bandwidth.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# A 32x32->64-bit multiply is two IMADs (lo, hi) at half the FMA rate:
+# four FMA issue slots, i.e. 8 FP32 operations' worth of the pipe.
+FLOPS_PER_WIDE_MUL = 8
 
 
 class SmokeFailure(Exception):
@@ -99,17 +118,20 @@ def compare_traces(name, out, ref):
 
 def main_model(gt, torch, device):
     """bench.py:make_model — 6-state 3D constant velocity, H = position,
-    Van Loan with dt = 0.1, q = 0.02, R = 0.5 I, P0 = I — in float32."""
+    Van Loan with dt = 0.1, q = 0.02, R = 0.5 I, P0 = I — in float32,
+    from host arrays with no `device=`: the entry points put it on the
+    card (`device`, the current one)."""
+    import numpy as np
+
     f32 = torch.float32
-    i3 = torch.eye(3, dtype=f32, device=device)
-    z3 = torch.zeros(3, 3, dtype=f32, device=device)
-    a = torch.cat([torch.cat([z3, i3], 1), torch.cat([z3, z3], 1)])
-    gamma = torch.cat([z3, i3])
-    f, q, _ = gt.c2d.van_loan(a, gamma, 0.02 * i3, 0.1, check_nyquist=False)
-    h = torch.cat([i3, z3], 1)
-    return gt.vanilla.new(torch.zeros(6, dtype=f32, device=device),
-                          torch.eye(6, dtype=f32, device=device), f, None, h,
-                          gt.noise.awgn(q, 0.5 * i3))
+    i3, z3 = np.eye(3), np.zeros((3, 3))
+    f, q, _ = gt.c2d.van_loan(np.block([[z3, i3], [z3, z3]]), np.vstack([z3, i3]),
+                              0.02 * i3, 0.1, check_nyquist=False, dtype=f32)
+    model, st = gt.vanilla.new(np.zeros(6), np.eye(6), f, None, np.hstack([i3, z3]),
+                               gt.noise.awgn(q, 0.5 * i3), dtype=f32)
+    check(model.f.device == device and st.p.device == device,
+          f"entry points put the model on {model.f.device}, not {device}")
+    return model, st
 
 
 def jerkcar_module(gt, torch, device, steps):
@@ -127,6 +149,122 @@ def jerkcar_module(gt, torch, device, steps):
                                        rng.standard_normal(steps + 1))
     return gt.ops.fused_mc.MonteCarloChiSquare(
         model, st, steps, controls=us, hs=hs, rs=rs, meas_masks=masks)
+
+
+def wide_module(gt, torch, device, steps):
+    """The largest state K1 takes, n = 16, p = 8, with a tv + control
+    schedule: eight constant-velocity (position, velocity) axes, dt =
+    0.1, positions measured with R = 0.5 I scaled per step and some rows
+    masked, random controls."""
+    import numpy as np
+
+    f32 = torch.float32
+    axes = 8
+    f1, q1 = gt.c2d.van_loan_host(np.array([[0.0, 1.0], [0.0, 0.0]]),
+                                  np.array([[0.0], [1.0]]), np.array([[0.02]]), 0.1)
+    eye = np.eye(axes)
+    f, q = np.kron(eye, f1), np.kron(eye, q1)
+    h = np.kron(eye, np.array([[1.0, 0.0]]))
+    g = np.kron(eye, np.array([[0.005], [0.1]]))
+    model, st = gt.vanilla.new(np.zeros(2 * axes), np.eye(2 * axes), f, g, h,
+                               gt.noise.awgn(q, 0.5 * eye, device=device),
+                               dtype=f32, device=device)
+    rng = np.random.default_rng(SEED)
+    hs = np.repeat(h[None], steps, axis=0)
+    rs = 0.5 * eye * rng.uniform(0.5, 2.0, (steps, 1, 1))
+    masks = rng.random((steps, axes)) > 0.2
+    return gt.ops.fused_mc.MonteCarloChiSquare(
+        model, st, steps, controls=rng.standard_normal((steps, axes)), hs=hs,
+        rs=rs, meas_masks=masks)
+
+
+def k1_work(n, p, tv, ctrl, samples, steps, fast_rng):
+    """(FP32 operations, Philox 32x32->64 multiplies, bytes) that K1's
+    function needs at this shape.  Operations per member-step: F x_t,
+    L_q w, F x_e (2n² each) and the sum (n); x_t - x⁻ (n), H (2pn), L_R v
+    (2p²), + (p); K ν (2np), + (n); e = x_t - x_e (n); the symmetric
+    quadratic forms e·(P⁻¹ e) and ν·(S⁻¹ ν) as n(n+1)/2 + n and
+    p(p+1)/2 + p multiply-adds (2 operations each); G u twice (2n) with
+    ctrl; the sums of NEES, NIS and x_t (2 + n) and the squared
+    deviations (3n).  L_q and L_R count as full matrices: the port's
+    sampling factors are `linalg.chol_or_eigh_sqrt`'s, which is not
+    triangular where Cholesky fails (a singular Q), so the function
+    takes any factor (the TPU kernel's lower-triangle loop assumes
+    Cholesky).  Bytes: the path rows read once, the partials written
+    once."""
+    from gokalman_tpu_torch.ops import fused_mc
+
+    lay = fused_mc._layout(n, p, tv, ctrl)
+    per = (7 * n * n + 4 * p * n + 3 * p * p + 11 * n + 4 * p + 2
+           + (2 * n if ctrl else 0))
+    words = n + p if fast_rng else 2 * ((n + p + 1) // 2)
+    muls = ((words + 3) // 4) * 10 * 2
+    member_steps = samples * steps
+    nbytes = 4 * (steps * lay["row"]
+                  + fused_mc._blocks(samples) * (2 + 2 * n) * steps)
+    return per * member_steps, muls * member_steps, nbytes
+
+
+def k1_bounds(work):
+    """(ms bound by bytes, by FP32 operations, FP32 plus the generator's
+    multiplies on the same pipe) of `k1_work`'s counts."""
+    flops, muls, nbytes = work
+    return (nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3,
+            (flops + FLOPS_PER_WIDE_MUL * muls) / PEAK_FP32 * 1e3)
+
+
+def sass_step_loops(path):
+    """{(n, p, tv, ctrl, fast): counts} of K1's step loop in the SASS of
+    the library at `path` (cuobjdump -sass): the smallest loop that
+    holds the warp butterfly's SHFL.BFLY, i.e. the instructions a warp
+    issues per step for its 32 members.  None without cuobjdump."""
+    from gokalman_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          timeout=300).stdout
+    out = {}
+    for func in text.split("Function : ")[1:]:
+        m = re.search(r"fused_mc_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E",
+                      func.split("\n", 1)[0])
+        if not m:
+            continue
+        insts, labels, pending = [], {}, []
+        for line in func.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if ins:
+                addr = int(ins.group(1), 16)
+                labels.update((name, addr) for name in pending)
+                pending = []
+                insts.append((addr, ins.group(2)))
+        loops = []
+        for addr, txt in insts:
+            if not re.search(r"\bBRA\b", txt):
+                continue
+            lab = re.search(r"(\.L_x_\d+)", txt)
+            hexa = re.search(r"BRA\s+(?:\S+\s+)?(0x[0-9a-f]+)", txt)
+            target = labels.get(lab.group(1)) if lab else (
+                int(hexa.group(1), 16) if hexa else None)
+            if target is not None and target <= addr:
+                loops.append((addr - target, target, addr))
+        bodies = [[t for a, t in insts if lo <= a <= hi] for _, lo, hi in sorted(loops)]
+        body = next((b for b in bodies if any("SHFL.BFLY" in t for t in b)), None)
+        if body is None:
+            continue
+        count = lambda op: sum(1 for t in body if re.search(op, t))
+        out[tuple(int(g) for g in m.groups())] = {
+            "instructions": len(body), "SHFL": count(r"\bSHFL"),
+            "LDS": count(r"\bLDS"), "BAR": count(r"\bBAR\b"),
+            "BRA": count(r"\bBRA\b"), "CALL": count(r"\bCALL"),
+            "MUFU": count(r"\bMUFU"), "FFMA": count(r"\bFFMA\b"),
+            "IMAD.WIDE": count(r"\bIMAD\.WIDE")}
+    return out
 
 
 def generator_gates(z, generator):
@@ -182,18 +320,38 @@ def setup():
 
 
 def phase_build():
-    """Build every kernel of the path from the checkout."""
+    """Build every kernel of the path from the checkout, one nvcc per
+    specialisation, all started together.  Logs ptxas's report, K1's
+    chunk and shared memory, and K1's SASS step loop; the main path's K1
+    must not spill."""
     from gokalman_tpu_torch.ops import _build, fused_mc
 
     t0 = time.perf_counter()
-    fused_mc.load_sample_normals()
-    fused_mc.load_fused_mc(6, 3, False, False)
-    fused_mc.load_fused_mc(4, 2, True, True)
+    with ThreadPoolExecutor(len(K1_SPECS) + 1) as pool:
+        jobs = [pool.submit(fused_mc.load_sample_normals)]
+        jobs += [pool.submit(fused_mc.load_fused_mc, *spec) for spec in K1_SPECS]
+        libs = [job.result() for job in jobs]
     log(f"[build] {time.perf_counter() - t0:.1f} s for {len(_build.records)} libraries")
     for rec in _build.records:
-        regs = [ln.strip() for ln in rec["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build] {rec['defines']} {rec['seconds']:.1f} s: " + " | ".join(regs))
+        lines = [ln.strip() for ln in rec["ptxas"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"[build] {rec['defines']} {rec['seconds']:.1f} s: " + " | ".join(lines))
+    for spec, lib in zip(K1_SPECS, libs[1:]):
+        log(f"[build] K1 {spec}: chunk {lib.fused_mc_chunk_steps()} steps, "
+            f"{lib.fused_mc_smem_bytes()} B dynamic shared memory per block, "
+            f"row {lib.fused_mc_row_len()} floats")
+    main_rec = next(r for r in _build.records if r["defines"].get("KN") == 6)
+    spills = re.findall(r"(\d+) bytes spill stores", main_rec["ptxas"])
+    check(spills and not any(int(b) for b in spills),
+          f"K1 (6, 3) spills or no ptxas report: {spills}")
+    sass = sass_step_loops(main_rec["path"])
+    if sass is None:
+        log("[sass] K1 step loop: not measured (no cuobjdump)")
+    else:
+        for key, counts in sorted(sass.items()):
+            log(f"[sass] K1 (n, p, tv, ctrl, fast_rng) = {key}: step loop "
+                f"{counts['instructions']} instructions per warp-step "
+                f"(= per member-step per lane); " + json.dumps(counts))
 
 
 def phase_k2_vs_plain(torch, device):
@@ -225,7 +383,9 @@ def phase_k1_vs_plain(gt, torch, device):
     cases = [("cv6 exact 8192x100", small, 8192, False),
              ("cv6 fast_rng 8192x100", small, 8192, True),
              ("jerkcar tv+ctrl 8000x100", jerkcar_module(gt, torch, device, 100),
-              8000, False)]
+              8000, False),
+             ("n16 p8 tv+ctrl 2000x70", wide_module(gt, torch, device, 70),
+              2000, False)]
     worst = 0.0
     for name, mod, samples, fast in cases:
         out = mod(samples, SEED, fast)
@@ -441,39 +601,57 @@ def phase_sharded_world2(world1):
 
 def phase_full_size(mod, device):
     """K1 and its plain version at the main path's full shape, same seed:
-    CUDA-event times of both, and every trace compared.  K2 and its
-    plain version timed at the generator gates' shape.  Returns the
-    times and K1's largest difference."""
+    CUDA-event times of `forward` (K1 + pooling) and of the plain
+    `reference` (its partials + the same pooling), every trace compared,
+    and K1's partials alone timed beside them.  K2, its plain version and
+    `torch.randn` of the same count timed at the generator gates' shape.
+    Returns the times {name: (kernel ms, plain ms, library ms or None)},
+    K1's being `forward`'s and `reference`'s, and K1's largest
+    difference."""
+    import torch
+
     from gokalman_tpu_torch.ops import fused_mc
 
     times, worst = {}, 0.0
     for fast in (False, True):
         key = "fast_rng" if fast else "exact"
-        k_ms, out = cuda_ms(lambda: mod(SAMPLES, SEED, fast), 5,
+        f_ms, out = cuda_ms(lambda: mod(SAMPLES, SEED, fast), 5,
                             lambda: mod(SAMPLES, SEED, fast))
+        k_ms, _ = cuda_ms(lambda: mod.partials(SAMPLES, SEED, fast), 5,
+                          lambda: mod.partials(SAMPLES, SEED, fast))
         p_ms, ref = cuda_ms(lambda: mod.reference(SAMPLES, SEED, fast), 1,
                             lambda: mod.reference(1024, SEED, fast))
         worst = max(worst, compare_traces(f"cv6 {key} {SAMPLES}x{STEPS}", out, ref))
-        times[f"fused_mc_{key}"] = (k_ms, p_ms)
-        log(f"[time] fused_mc {key} {SAMPLES}x{STEPS}: kernel {k_ms:.3f} ms "
-            f"({SAMPLES * STEPS / k_ms * 1e3:.4g} member-steps/s), "
-            f"plain {p_ms:.1f} ms ({SAMPLES * STEPS / p_ms * 1e3:.4g} member-steps/s)")
+        times[f"fused_mc_{key}"] = (f_ms, p_ms, None)
+        log(f"[time] fused_mc {key} {SAMPLES}x{STEPS}: forward {f_ms:.3f} ms "
+            f"({SAMPLES * STEPS / f_ms * 1e3:.4g} member-steps/s), K1 partials "
+            f"alone {k_ms:.3f} ms, plain {p_ms:.1f} ms "
+            f"({SAMPLES * STEPS / p_ms * 1e3:.4g} member-steps/s)")
+    # torch.randn's first calls in the process run several times slower
+    # than later ones, so it gets 20 warm-up calls.
+    randn = lambda: torch.randn(DRAWS, device=device)
+    randn_ms = cuda_ms(randn, 200, lambda: [randn() for _ in range(20)])[0]
     for gen in K2_TOL:
         draw = lambda: fused_mc.sample_normals(DRAWS, SEED, gen, device)
         draw_ref = lambda: fused_mc.sample_normals_ref(DRAWS, SEED, gen, device)
         times[f"sample_normals_{gen}"] = (cuda_ms(draw, 200, draw)[0],
-                                          cuda_ms(draw_ref, 5, draw_ref)[0])
+                                          cuda_ms(draw_ref, 5, draw_ref)[0],
+                                          randn_ms)
         log(f"[time] sample_normals {gen} {DRAWS}: kernel "
             f"{times[f'sample_normals_{gen}'][0]:.4f} ms, plain "
-            f"{times[f'sample_normals_{gen}'][1]:.3f} ms")
+            f"{times[f'sample_normals_{gen}'][1]:.3f} ms, torch.randn "
+            f"{times[f'sample_normals_{gen}'][2]:.4f} ms")
     log("[time] " + json.dumps({"ms": {k: v[0] for k, v in times.items()},
-                                "plain_ms": {k: v[1] for k, v in times.items()}}))
+                                "plain_ms": {k: v[1] for k, v in times.items()},
+                                "library_ms": {k: v[2] for k, v in times.items()}}))
     return times, worst
 
 
 def phase_device_times(mod, device):
     """Device time per launch of each kernel, from torch.profiler's CUPTI
-    trace; "not measured" where the trace holds no device time."""
+    trace; "not measured" where the trace holds no device time.  K1's
+    time beside its bounds (`k1_bounds`): the FP32 roofline's share, and
+    the share of the bound that also counts the generator's multiplies."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -487,15 +665,38 @@ def phase_device_times(mod, device):
             for _ in range(20):
                 fused_mc.sample_normals(DRAWS, SEED, gen, device)
         torch.cuda.synchronize()
-    found = 0
+    found = {}
     for e in prof.key_averages():
         if "fused_mc_kernel" in e.key or "sample_normals_kernel" in e.key:
             total_us = getattr(e, "device_time_total", None) or e.cuda_time_total
-            log(f"[profile] {e.key[:90]}: {total_us / e.count / 1e3:.4f} ms "
+            ms = total_us / e.count / 1e3
+            log(f"[profile] {e.key[:90]}: {ms:.4f} ms "
                 f"device time per launch ({e.count} launches)")
-            found += 1
+            fast = re.search(r"fused_mc_kernel<6, 3, false, false, (true|false)>", e.key)
+            if fast:
+                found[f"fused_mc_{'fast_rng' if fast.group(1) == 'true' else 'exact'}"] = ms
+            elif "sample_normals" in e.key:
+                found[e.key] = ms
     if not found:
         log("[profile] kernel device time: not measured (no device events)")
+    for key, ms in found.items():
+        if not key.startswith("fused_mc"):
+            continue
+        by_bytes, fp32, with_gen = k1_bounds(
+            k1_work(6, 3, False, False, SAMPLES, STEPS, key.endswith("fast_rng")))
+        log(f"[bound] K1 {key} {SAMPLES}x{STEPS}: device {ms:.4f} ms; bounds "
+            f"{by_bytes:.4f} ms by bytes, {fp32:.4f} ms by FP32 operations "
+            f"(share {fp32 / ms:.1%}), {with_gen:.4f} ms with the generator's "
+            f"multiplies (share {with_gen / ms:.1%})")
+
+
+def kernel_entry(name, key, counts, max_err, times, bound_ms, bound_by):
+    ms, plain_ms, library_ms = times[key]
+    return {"name": name, "route": "cuda",
+            "source": "gokalman_tpu_torch/csrc/fused_mc.cu",
+            "replaces": REPLACES[name], "launches": counts[name],
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def run():
@@ -519,15 +720,16 @@ def run():
     for line in smi.stdout.strip().splitlines():
         log(line.strip())
 
-    kernels = []
-    for name, key in (("fused_mc", "fused_mc_exact"),
-                      ("sample_normals", "sample_normals_box_muller")):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "gokalman_tpu_torch/csrc/fused_mc.cu",
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": max_err[name],
-            "ms": times[key][0], "plain_ms": times[key][1]})
+    # K1: the larger of its bytes and FP32-operations bounds (the
+    # generator's integer multiplies, on the same pipe, are in the
+    # [bound] line); K2: its 4 bytes per draw written.
+    k1 = k1_bounds(k1_work(6, 3, False, False, SAMPLES, STEPS, False))
+    k2_ms = 4 * DRAWS / PEAK_BYTES * 1e3
+    kernels = [
+        kernel_entry("fused_mc", "fused_mc_exact", counts, max_err, times,
+                     max(k1[:2]), "bytes" if k1[0] > k1[1] else "operations"),
+        kernel_entry("sample_normals", "sample_normals_box_muller", counts,
+                     max_err, times, k2_ms, "bytes")]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve_device
+
 
 def nyquist_ok(a, dt: float) -> bool:
     """Nyquist criterion 2*|lambda_max|*dt < pi (reference: c2d.go:16-28):
@@ -28,9 +30,10 @@ def van_loan(a, gamma, w, dt: float, check_nyquist: bool = True, *,
 
     Builds M = [[-A dt, G W Gᵀ dt], [0, Aᵀ dt]], exponentiates, and
     reads F = exp(A dt) and Q = F (F⁻¹ Q) from the blocks
-    (reference: c2d.go:31-74).  `ok` is the Nyquist flag.
+    (reference: c2d.go:31-74).  `ok` is the Nyquist flag.  Tensors go
+    to `device`, else a's, else the card.
     """
-    a = torch.as_tensor(a, dtype=dtype, device=device)
+    a = torch.as_tensor(a, dtype=dtype, device=resolve_device(device, a))
     gamma = torch.as_tensor(gamma, dtype=a.dtype, device=a.device)
     w = torch.as_tensor(w, dtype=a.dtype, device=a.device)
     n = a.shape[0]

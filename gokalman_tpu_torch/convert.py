@@ -1,7 +1,8 @@
 """Carry JAX-package records across to the port.
 
 The arguments are the fields of a gokalman_tpu record as numpy arrays
-(`np.asarray(model.f)`, ...):
+(`np.asarray(model.f)`, ...).  The tensors go to `device`, by default
+the card:
 
 - `model_from_numpy` / `state_from_numpy`: a `vanilla.Model` / `State`.
   The sampling factors `sqrt_q`/`sqrt_r` are carried over as they are,
@@ -19,6 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .filters.vanilla import Estimate, Model, State
 from .montecarlo import MonteCarloRuns
 from .noise import Noise
@@ -29,20 +31,23 @@ def _t(a, dtype, device):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
+def _tensors(arrays, dtype, device):
+    device = resolve_device(device)
+    return [None if a is None else _t(a, dtype, device) for a in arrays]
+
+
 def model_from_numpy(f, g, h, q, r, sqrt_q, sqrt_r, *,
                      dtype=torch.float64, device=None) -> Model:
     """Port-side `Model` from the arrays of a JAX `vanilla.Model`
     (g may be None)."""
-    noise = Noise(*(_t(a, dtype, device) for a in (q, r, sqrt_q, sqrt_r)))
-    return Model(_t(f, dtype, device),
-                 None if g is None else _t(g, dtype, device),
-                 _t(h, dtype, device), noise)
+    f, g, h, *noise = _tensors((f, g, h, q, r, sqrt_q, sqrt_r), dtype, device)
+    return Model(f, g, h, Noise(*noise))
 
 
 def state_from_numpy(x, p, *, dtype=torch.float64, device=None) -> State:
     """Port-side `State` (step counter 0) from a JAX state's x and P."""
-    k = torch.zeros((), dtype=torch.int32, device=device)
-    return State(_t(x, dtype, device), _t(p, dtype, device), k)
+    x, p = _tensors((x, p), dtype, device)
+    return State(x, p, torch.zeros((), dtype=torch.int32, device=x.device))
 
 
 def estimate_from_numpy(state, measurement, innovation, covariance,
@@ -50,8 +55,8 @@ def estimate_from_numpy(state, measurement, innovation, covariance,
                         device=None) -> Estimate:
     """Port-side `Estimate` from a JAX `vanilla.Estimate`'s fields, in
     field order (`*map(np.asarray, est)`)."""
-    return Estimate(*(_t(a, dtype, device) for a in (
-        state, measurement, innovation, covariance, pred_covariance, gain)))
+    return Estimate(*_tensors((state, measurement, innovation, covariance,
+                               pred_covariance, gain), dtype, device))
 
 
 def runs_from_numpy(estimate: Sequence, runs: int, steps: int, *,

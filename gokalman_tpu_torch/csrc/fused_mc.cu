@@ -15,17 +15,37 @@
 //    [blocks, 2 + 2n, T]; the host pools them (Chan's formula for the
 //    variance).  No atomics and no cross-block carry: the result is
 //    deterministic.
-//    What bounds it: instruction issue, not memory.  Each member-step
-//    costs 3 Philox4x32-10 calls, 5 log/sqrt/sincos Box-Muller pairs,
-//    ~200 FMAs of filter algebra and 2 block reductions (1,234 SASS
-//    instructions for n=6, p=3; on an H100 SXM at 700 W the kernel runs
-//    at ~78% of the 4-instructions-per-clock-per-SM issue bound), while
-//    it reads one broadcast path row (~250 B, L1-resident) and writes
-//    nothing per member.  The design keeps every per-member quantity in
-//    registers, F/L_q/H/L_R/x0/L0 in the parameter (constant) bank as
-//    FMA operands, and the path rows as uniform __ldg loads.  At
-//    S = 98,304 one thread per member fills ~36% of the card's 270k
-//    thread slots; occupancy tuning, wgmma and TMA are later work.
+//
+//    What bounds it: instruction issue, not memory.  Per member-step it
+//    does ~430 FP32 operations of filter algebra and statistics (n = 6,
+//    p = 3: 4.2e10 at 98,304 x 1,000, 0.63 ms at the H100's 67 TFLOP/s),
+//    3 Philox4x32-10 calls (60 32x32->64-bit multiplies) and 5
+//    Box-Muller pairs; it reads one path row per step, shared by the
+//    whole ensemble, and writes nothing per member.  So the design cuts
+//    instructions that are not this work:
+//    - Steps run in chunks of C (sized from the row length, Layout::C).
+//      One thread bulk-copies the path rows of the next chunks into a
+//      two-stage ring in shared memory (cp.async.bulk, completion on an
+//      mbarrier); every member reads each row as float4 broadcasts.
+//    - Per step each warp sums its 2 + 2n statistics with a transpose
+//      butterfly: at each level a lane sends half of its values and
+//      keeps half, so 16 values cost 16 shuffles, not 80.  The x_t
+//      components are summed shifted by lane 0's x_t, so each warp has
+//      (count, sum d, sum d^2) with no f32 sum x^2 - S mean^2
+//      cancellation.  The warps' sums of a chunk wait in shared memory;
+//      after the chunk the block combines the warps of each step with
+//      Chan's formula and writes C consecutive steps per partials row.
+//      Two barriers per chunk, none per step.
+//    - F, L_q, H, L_R, x0, L0 and the Philox round keys (computed on the
+//      host from the seed) sit in the __grid_constant__ parameter struct,
+//      so they are constant-bank operands.  The NEES/NIS weights are
+//      upper triangles with the off-diagonal entries pre-summed
+//      (P_ij + P_ji), so a quadratic form costs n(n+1)/2 + n FMAs.
+//    - Box-Muller's square root is the hardware approximation: its
+//      argument, -2 ln u1 with u1 in [2^-25, 1 - 2^-25], is never 0, a
+//      denormal or infinite, so the IEEE sqrtf slow-path call is dead.
+//    With 256 threads a block and at most 64 KB of shared memory, three
+//    blocks fit on an SM: at S = 98,304 all 384 blocks are resident.
 //
 // K2 sample_normals_kernel replaces gokalman_tpu/ops/pallas_mc.py:
 //    sample_normals_pallas.  Thread i writes normals 4i..4i+3 from the
@@ -53,19 +73,33 @@
 namespace {
 
 constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
-constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
+constexpr int PHILOX_ROUNDS = 10;
 // 1/sqrt(6 + (1 - 2^-16)/12): unit variance for popcount24 + dither.
 constexpr float CLT_SCALE = 0.40544246941340006f;
+constexpr int WARPS = KBLOCK / 32;
+// Shared memory one K1 block may take: three fit in an SM's 227 KB.
+constexpr int SMEM_BUDGET = 64 * 1024;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
+// Philox4x32-10 round keys: k0 of round r at [r], k1 at [ROUNDS + r].
+// The host builds them from the seed (ops/philox.py:key_schedule); both
+// kernels take them by value, as constant-bank operands.
+struct KeySchedule {
+  uint32_t k[2 * PHILOX_ROUNDS];
+};
+
+KeySchedule keys_from_host(const uint32_t* keys_host) {
+  KeySchedule ks;
+  for (int i = 0; i < 2 * PHILOX_ROUNDS; ++i) ks.k[i] = keys_host[i];
+  return ks;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, const KeySchedule& ks) {
 #pragma unroll
-  for (int r = 0; r < 10; ++r) {
+  for (int r = 0; r < PHILOX_ROUNDS; ++r) {
     const uint32_t lo0 = PHILOX_M0 * c.x, hi0 = __umulhi(PHILOX_M0, c.x);
     const uint32_t lo1 = PHILOX_M1 * c.z, hi1 = __umulhi(PHILOX_M1, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-    k0 += PHILOX_W0;
-    k1 += PHILOX_W1;
+    c = make_uint4(hi1 ^ c.y ^ ks.k[r], lo1,
+                   hi0 ^ c.w ^ ks.k[PHILOX_ROUNDS + r], lo0);
   }
   return c;
 }
@@ -89,12 +123,18 @@ __device__ __forceinline__ void sincos_turns(float u, float& c, float& s) {
   s = (qi == 2 || qi == 3) ? -s0 : s0;
 }
 
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Both branches of one Box-Muller pair: pallas_mc.py:_normal_pair.
 __device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
                                            float& a, float& b) {
   const float u1 = static_cast<float>(b1 & 0xFFFFFFu) * 0x1p-24f + 0x1p-25f;
   const float u2 = static_cast<float>(b2 & 0xFFFFFFu) * 0x1p-24f;
-  const float r = sqrtf(-2.0f * logf(u1));
+  const float r = sqrt_approx(-2.0f * logf(u1));
   float c, s;
   sincos_turns(u2, c, s);
   a = r * c;
@@ -112,7 +152,7 @@ __device__ __forceinline__ float clt_normal(uint32_t bits) {
 // COUNT normals of one member's draw index `draw` (ops/philox.py:normals).
 template <int COUNT, bool FAST>
 __device__ __forceinline__ void draw_normals(uint32_t member, uint32_t draw,
-                                             uint32_t k0, uint32_t k1,
+                                             const KeySchedule& ks,
                                              float (&out)[COUNT]) {
   constexpr int WORDS = FAST ? COUNT : 2 * ((COUNT + 1) / 2);
   constexpr int GROUPS = (WORDS + 3) / 4;
@@ -120,7 +160,7 @@ __device__ __forceinline__ void draw_normals(uint32_t member, uint32_t draw,
 #pragma unroll
   for (int g = 0; g < GROUPS; ++g) {
     const uint4 r = philox4x32_10(
-        make_uint4(member, draw, static_cast<uint32_t>(g), 0u), k0, k1);
+        make_uint4(member, draw, static_cast<uint32_t>(g), 0u), ks);
     w[4 * g] = r.x;
     w[4 * g + 1] = r.y;
     w[4 * g + 2] = r.z;
@@ -140,25 +180,67 @@ __device__ __forceinline__ void draw_normals(uint32_t member, uint32_t draw,
   }
 }
 
-template <int M>
-__device__ __forceinline__ void warp_sum(float (&v)[M]) {
+// Transpose butterfly over the warp, level LVL (lane bit 16 >> LVL):
+// while a lane holds more than one value it keeps half and sends half,
+// afterwards it adds its partner's one value.  After all five levels
+// lane l holds the warp's sums of values (l >> (5 - L)) * R + i, i < R,
+// with L = min(log2 M, 5) halving levels and R = M >> L.
+template <int M, int LVL>
+__device__ __forceinline__ void transpose_sum(float (&v)[M], int lane) {
+  constexpr int OFF = 16 >> LVL;
+  constexpr int HALF = M >> (LVL + 1);
+  if constexpr (HALF >= 1) {
+    const bool upper = (lane & OFF) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int q = 0; q < M; ++q) v[q] += __shfl_xor_sync(0xFFFFFFFFu, v[q], off);
+    for (int i = 0; i < HALF; ++i) {
+      const float send = upper ? v[i] : v[i + HALF];
+      const float keep = upper ? v[i + HALF] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, OFF);
+    }
+  } else {
+    v[0] += __shfl_xor_sync(0xFFFFFFFFu, v[0], OFF);
   }
+  if constexpr (LVL < 4) transpose_sum<M, LVL + 1>(v, lane);
 }
 
-// Offsets of the packed path row and fixed array (ops/fused_mc.py:_layout).
+constexpr int pad4(int x) { return (x + 3) / 4 * 4; }
+
+constexpr int pow2_at_least(int x) {
+  int m = 1;
+  while (m < x) m *= 2;
+  return m;
+}
+
+constexpr int log2_exact(int m) {
+  int l = 0;
+  while ((1 << l) < m) ++l;
+  return l;
+}
+
+constexpr int smem_bytes(int chunk, int row, int slot) {
+  return 16 + 4 * chunk * (2 * row + WARPS * slot);
+}
+
+// Steps per chunk: the largest power of two up to 32 whose ring and
+// staging fit in SMEM_BUDGET.
+constexpr int chunk_steps(int row, int slot) {
+  int c = 32;
+  while (c > 1 && smem_bytes(c, row, slot) > SMEM_BUDGET) c /= 2;
+  return c;
+}
+
+// Offsets of the packed path row and fixed array (ops/fused_mc.py:_layout),
+// and the shared-memory plan.  Every row segment starts on 16 bytes, so it
+// reads as float4s and a chunk of rows is one bulk copy.
 template <int N, int P, bool TV, bool CTRL>
 struct Layout {
   static constexpr int K = 0;
-  static constexpr int PINV = K + N * P;
-  static constexpr int SINV = PINV + N * N;
-  static constexpr int H = SINV + P * P;
-  static constexpr int LR = H + (TV ? P * N : 0);
-  static constexpr int GU = LR + (TV ? P * P : 0);
-  static constexpr int ROW = GU + (CTRL ? N : 0);
+  static constexpr int PINV = K + pad4(N * P);
+  static constexpr int SINV = PINV + pad4(N * (N + 1) / 2);
+  static constexpr int H = SINV + pad4(P * (P + 1) / 2);
+  static constexpr int LR = H + (TV ? pad4(P * N) : 0);
+  static constexpr int GU = LR + (TV ? pad4(P * P) : 0);
+  static constexpr int ROW = GU + (CTRL ? pad4(N) : 0);
   static constexpr int F = 0;
   static constexpr int LQ = F + N * N;
   static constexpr int FH = LQ + N * N;
@@ -166,177 +248,315 @@ struct Layout {
   static constexpr int X0 = FLR + P * P;
   static constexpr int L0 = X0 + N;
   static constexpr int FIXED = L0 + N * N;
+  // A warp's statistics of one step: NEES, NIS, sum d (n), sum d^2 (n),
+  // padded to M for the butterfly; staged as VA values then n shifts.
+  static constexpr int V = 2 + 2 * N;
+  static constexpr int M = pow2_at_least(V);
+  static constexpr int LEVELS = log2_exact(M) < 5 ? log2_exact(M) : 5;
+  static constexpr int R = M >> LEVELS;
+  static constexpr int VA = pad4(V);
+  static constexpr int SLOT = VA + pad4(N);
+  static constexpr int C = chunk_steps(ROW, SLOT);
+  static constexpr int SMEM = smem_bytes(C, ROW, SLOT);
 };
 
 template <int LEN>
-struct Fixed {
+struct Params {
   float v[LEN];
+  KeySchedule keys;
 };
 
+// LEN floats of a 16-byte-aligned row segment in shared memory.
+template <int LEN>
+__device__ __forceinline__ void load_row(const float* src, float (&dst)[LEN]) {
+#pragma unroll
+  for (int q = 0; q < LEN; q += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(src + q);
+    dst[q] = f.x;
+    if (q + 1 < LEN) dst[q + 1] = f.y;
+    if (q + 2 < LEN) dst[q + 2] = f.z;
+    if (q + 3 < LEN) dst[q + 3] = f.w;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n\t}"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// One thread: `bytes` from global `src` to shared `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 template <int N, int P, bool TV, bool CTRL, bool FAST>
-__global__ void __launch_bounds__(KBLOCK)
+__global__ void __launch_bounds__(KBLOCK, N <= 8 ? 3 : 1)
 fused_mc_kernel(const float* __restrict__ path,
-                const __grid_constant__ Fixed<Layout<N, P, TV, CTRL>::FIXED> fx,
-                int steps, int samples, uint32_t member_offset, uint32_t k0,
-                uint32_t k1, float* __restrict__ partials) {
+                const __grid_constant__ Params<Layout<N, P, TV, CTRL>::FIXED> prm,
+                int steps, int samples, uint32_t member_offset,
+                float* __restrict__ partials) {
   using L = Layout<N, P, TV, CTRL>;
+  constexpr int C = L::C;
   constexpr int ROWS = 2 + 2 * N;
-  constexpr int WARPS = KBLOCK / 32;
-  __shared__ float red_a[WARPS][2 + N];
-  __shared__ float red_b[WARPS][N];
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // one per ring stage
+  float* ring = reinterpret_cast<float*>(smem + 16);  // [2][C][ROW]
+  float* staged = ring + 2 * C * L::ROW;              // [C][WARPS][SLOT]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int member = blockIdx.x * KBLOCK + tid;
-  // Philox member word: the global index.  `valid`, `count` and the
+  // Philox member word: the global index.  `valid`, the counts and the
   // block partials keep the index in this launch.
   const uint32_t ctr = member_offset + static_cast<uint32_t>(member);
-  // Members past `samples` run along (they take part in the barriers)
+  // Members past `samples` run along (they take part in the shuffles)
   // and add zeros to every sum.
   const bool valid = member < samples;
-  const float count =
-      static_cast<float>(min(KBLOCK, samples - static_cast<int>(blockIdx.x) * KBLOCK));
+  const int block_count =
+      min(KBLOCK, samples - static_cast<int>(blockIdx.x) * KBLOCK);
   float* out = partials + static_cast<size_t>(blockIdx.x) * ROWS * steps;
+
+  // Chunk k's rows into ring stage k & 1 (one thread).
+  auto load_chunk = [&](int k) {
+    const int rows = min(C, steps - k * C);
+    bulk_load(ring + (k & 1) * C * L::ROW,
+              path + static_cast<size_t>(k) * C * L::ROW,
+              static_cast<uint32_t>(rows * L::ROW * sizeof(float)), &bar[k & 1]);
+  };
+  if (tid == 0) {
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && steps > 0) {
+    load_chunk(0);
+    if (C < steps) load_chunk(1);
+  }
 
   float xt[N], xe[N];
   {
     float z[N];
-    draw_normals<N, FAST>(ctr, 0u, k0, k1, z);
+    draw_normals<N, FAST>(ctr, 0u, prm.keys, z);
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      float acc = fx.v[L::X0 + i];
+      float acc = prm.v[L::X0 + i];
 #pragma unroll
-      for (int j = 0; j < N; ++j) acc += fx.v[L::L0 + i * N + j] * z[j];
+      for (int j = 0; j < N; ++j) acc += prm.v[L::L0 + i * N + j] * z[j];
       xt[i] = acc;
-      xe[i] = fx.v[L::X0 + i];
+      xe[i] = prm.v[L::X0 + i];
     }
   }
 
-  for (int t = 0; t < steps; ++t) {
-    const float* row = path + static_cast<size_t>(t) * L::ROW;
-    float d[N + P];  // w = d[0:N], v = d[N:N+P]
-    draw_normals<N + P, FAST>(ctr, static_cast<uint32_t>(t + 1), k0, k1, d);
+  for (int k = 0, t0 = 0; t0 < steps; ++k, t0 += C) {
+    const int len = min(C, steps - t0);
+    mbar_wait(&bar[k & 1], (k >> 1) & 1);
+    const float* rows = ring + (k & 1) * C * L::ROW;
 
-    float xn[N], xp[N];
+#pragma unroll 1
+    for (int j = 0; j < len; ++j) {
+      const float* row = rows + j * L::ROW;
+      float d[N + P];  // w = d[0:N], v = d[N:N+P]
+      draw_normals<N + P, FAST>(ctr, static_cast<uint32_t>(t0 + j + 1),
+                                prm.keys, d);
+
+      float gu[CTRL ? N : 1];
+      if constexpr (CTRL) load_row(row + L::GU, gu);
+      float xn[N], xp[N];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float a = 0.0f, b = 0.0f;
+      for (int i = 0; i < N; ++i) {
+        float a = 0.0f, b = 0.0f;
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        a += fx.v[L::F + i * N + j] * xt[j];
-        b += fx.v[L::F + i * N + j] * xe[j];
+        for (int j2 = 0; j2 < N; ++j2) {
+          a += prm.v[L::F + i * N + j2] * xt[j2];
+          b += prm.v[L::F + i * N + j2] * xe[j2];
+        }
+#pragma unroll
+        for (int j2 = 0; j2 < N; ++j2) a += prm.v[L::LQ + i * N + j2] * d[j2];
+        if constexpr (CTRL) {
+          a += gu[i];
+          b += gu[i];
+        }
+        xn[i] = a;
+        xp[i] = b;
+      }
+
+      float hm[P * N], lrm[P * P];
+      if constexpr (TV) {
+        load_row(row + L::H, hm);
+        load_row(row + L::LR, lrm);
+      } else {
+#pragma unroll
+        for (int q = 0; q < P * N; ++q) hm[q] = prm.v[L::FH + q];
+#pragma unroll
+        for (int q = 0; q < P * P; ++q) lrm[q] = prm.v[L::FLR + q];
+      }
+      float nu[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        float a = 0.0f;
+#pragma unroll
+        for (int j2 = 0; j2 < N; ++j2) a += hm[i * N + j2] * (xn[j2] - xp[j2]);
+#pragma unroll
+        for (int j2 = 0; j2 < P; ++j2) a += lrm[i * P + j2] * d[N + j2];
+        nu[i] = a;
+      }
+
+      float km[N * P];
+      load_row(row + L::K, km);
+      float err[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        float u = xp[i];
+#pragma unroll
+        for (int j2 = 0; j2 < P; ++j2) u += km[i * P + j2] * nu[j2];
+        xe[i] = u;
+        xt[i] = xn[i];
+        err[i] = xn[i] - u;
+      }
+
+      // Quadratic forms of the packed upper triangles: row i of the
+      // triangle starts at i*n - i(i-1)/2 and holds P_ii, then P_ij + P_ji.
+      float pw[N * (N + 1) / 2], sw[P * (P + 1) / 2];
+      load_row(row + L::PINV, pw);
+      load_row(row + L::SINV, sw);
+      float nees = 0.0f, nis = 0.0f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int base = i * N - i * (i - 1) / 2 - i;
+        float s = 0.0f;
+#pragma unroll
+        for (int j2 = i; j2 < N; ++j2) s += pw[base + j2] * err[j2];
+        nees += s * err[i];
       }
 #pragma unroll
-      for (int j = 0; j < N; ++j) a += fx.v[L::LQ + i * N + j] * d[j];
-      if constexpr (CTRL) {
-        const float gu = __ldg(row + L::GU + i);
-        a += gu;
-        b += gu;
+      for (int i = 0; i < P; ++i) {
+        const int base = i * P - i * (i - 1) / 2 - i;
+        float s = 0.0f;
+#pragma unroll
+        for (int j2 = i; j2 < P; ++j2) s += sw[base + j2] * nu[j2];
+        nis += s * nu[i];
       }
-      xn[i] = a;
-      xp[i] = b;
-    }
 
-    float nu[P];
+      // The warp's statistics: NEES, NIS, and x_t - x_t(lane 0) and its
+      // square per component.
+      float v[L::M];
+      float ref[N];
+      v[0] = valid ? nees : 0.0f;
+      v[1] = valid ? nis : 0.0f;
 #pragma unroll
-    for (int i = 0; i < P; ++i) {
-      float a = 0.0f;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float h = TV ? __ldg(row + L::H + i * N + j) : fx.v[L::FH + i * N + j];
-        a += h * (xn[j] - xp[j]);
+      for (int i = 0; i < N; ++i) {
+        ref[i] = __shfl_sync(0xFFFFFFFFu, xt[i], 0);
+        const float dx = valid ? xt[i] - ref[i] : 0.0f;
+        v[2 + i] = dx;
+        v[2 + N + i] = dx * dx;
       }
 #pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const float lr = TV ? __ldg(row + L::LR + i * P + j) : fx.v[L::FLR + i * P + j];
-        a += lr * d[N + j];
+      for (int i = L::V; i < L::M; ++i) v[i] = 0.0f;
+      transpose_sum<L::M, 0>(v, lane);
+      float* slot = staged + (j * WARPS + warp) * L::SLOT;
+      if ((lane & ((1 << (5 - L::LEVELS)) - 1)) == 0) {
+        const int first = (lane >> (5 - L::LEVELS)) * L::R;
+#pragma unroll
+        for (int i = 0; i < L::R; ++i) {
+          if (first + i < L::V) slot[first + i] = v[i];
+        }
       }
-      nu[i] = a;
+      if (lane == 0) {
+#pragma unroll
+        for (int q = 0; q < N; q += 4) {
+          float4 f;
+          f.x = ref[q];
+          f.y = q + 1 < N ? ref[q + 1] : 0.0f;
+          f.z = q + 2 < N ? ref[q + 2] : 0.0f;
+          f.w = q + 3 < N ? ref[q + 3] : 0.0f;
+          *reinterpret_cast<float4*>(slot + L::VA + q) = f;
+        }
+      }
     }
 
-    float err[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float u = xp[i];
-#pragma unroll
-      for (int j = 0; j < P; ++j) u += __ldg(row + L::K + i * P + j) * nu[j];
-      xe[i] = u;
-      xt[i] = xn[i];
-      err[i] = xn[i] - u;
-    }
-
-    // Quadratic forms of the symmetric weights: diagonal + 2 x upper.
-    float nees = 0.0f, nis = 0.0f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      nees += __ldg(row + L::PINV + i * N + i) * err[i] * err[i];
-#pragma unroll
-      for (int j = i + 1; j < N; ++j)
-        nees += 2.0f * __ldg(row + L::PINV + i * N + j) * err[i] * err[j];
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-      nis += __ldg(row + L::SINV + i * P + i) * nu[i] * nu[i];
-#pragma unroll
-      for (int j = i + 1; j < P; ++j)
-        nis += 2.0f * __ldg(row + L::SINV + i * P + j) * nu[i] * nu[j];
-    }
-
-    // Block sums of NEES, NIS and x_t: warp butterflies, then one
-    // shared-memory row per warp.
-    float sa[2 + N];
-    sa[0] = valid ? nees : 0.0f;
-    sa[1] = valid ? nis : 0.0f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) sa[2 + i] = valid ? xt[i] : 0.0f;
-    warp_sum<2 + N>(sa);
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < 2 + N; ++q) red_a[warp][q] = sa[q];
-    }
+    // The chunk's warp sums are staged and its ring stage is read.
     __syncthreads();
-    if (tid < 2 + N) {
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) s += red_a[w][tid];
-      out[tid * steps + t] = s;
+    if (tid == 0 && t0 + 2 * C < steps) {
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      load_chunk(k + 2);
     }
-    // Squared deviations from the block's own mean (Chan pooling on the
-    // host; no f32 sum-of-squares cancellation).
-    float sb[N];
+    // Block partials of the chunk's steps: NEES and NIS sum over the
+    // warps; x_t pools the warps' (count, shift, sum d, sum d^2) with
+    // Chan's formula about warp 0's shift r0.
+    for (int job = tid; job < (2 + N) * len; job += KBLOCK) {
+      const int q = job / len;
+      const int j = job - q * len;
+      const float* s = staged + j * WARPS * L::SLOT;
+      float* o = out + t0 + j;
+      if (q < 2) {
+        float sum = 0.0f;
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float s = 0.0f;
+        for (int w = 0; w < WARPS; ++w) sum += s[w * L::SLOT + q];
+        o[q * steps] = sum;
+        continue;
+      }
+      const int i = q - 2;
+      const float r0 = s[L::VA + i];
+      float dsum = 0.0f;  // sum over the block of x_t - r0
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) s += red_a[w][2 + i];
-      const float dx = xt[i] - s / count;
-      sb[i] = valid ? dx * dx : 0.0f;
+      for (int w = 0; w < WARPS; ++w) {
+        const int c = min(32, block_count - 32 * w);
+        if (c > 0) {
+          dsum += static_cast<float>(c) * (s[w * L::SLOT + L::VA + i] - r0) +
+                  s[w * L::SLOT + 2 + i];
+        }
+      }
+      const float mean = dsum / static_cast<float>(block_count);  // minus r0
+      float m2 = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const int c = min(32, block_count - 32 * w);
+        if (c > 0) {
+          const float cf = static_cast<float>(c);
+          const float sd = s[w * L::SLOT + 2 + i];
+          const float dm = (s[w * L::SLOT + L::VA + i] - r0) + sd / cf - mean;
+          m2 += (s[w * L::SLOT + 2 + N + i] - sd * sd / cf) + cf * dm * dm;
+        }
+      }
+      o[(2 + i) * steps] = static_cast<float>(block_count) * r0 + dsum;
+      o[(2 + N + i) * steps] = m2;
     }
-    warp_sum<N>(sb);
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < N; ++i) red_b[warp][i] = sb[i];
-    }
+    // The staging is free for the next chunk.
     __syncthreads();
-    if (tid < N) {
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < WARPS; ++w) s += red_b[w][tid];
-      out[(2 + N + tid) * steps + t] = s;
-    }
   }
 }
 
 template <bool FAST>
 __global__ void __launch_bounds__(KBLOCK)
-sample_normals_kernel(float* __restrict__ out, long long count, uint32_t k0,
-                      uint32_t k1) {
+sample_normals_kernel(float* __restrict__ out, long long count,
+                      const __grid_constant__ KeySchedule keys) {
   const long long i = static_cast<long long>(blockIdx.x) * KBLOCK + threadIdx.x;
   const long long base = 4 * i;
   if (base >= count) return;
   float z[4];
-  draw_normals<4, FAST>(static_cast<uint32_t>(i), 0u, k0, k1, z);
+  draw_normals<4, FAST>(static_cast<uint32_t>(i), 0u, keys, z);
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
     if (base + l < count) out[base + l] = z[l];
@@ -345,15 +565,18 @@ sample_normals_kernel(float* __restrict__ out, long long count, uint32_t k0,
 
 }  // namespace
 
-extern "C" int sample_normals_launch(float* out, long long count, uint32_t k0,
-                                     uint32_t k1, int fast_rng, void* stream) {
+// `keys_host`: the 20 round keys (host array, passed by value).
+extern "C" int sample_normals_launch(float* out, long long count,
+                                     const uint32_t* keys_host, int fast_rng,
+                                     void* stream) {
   const long long threads = (count + 3) / 4;
   const dim3 grid(static_cast<unsigned>((threads + KBLOCK - 1) / KBLOCK));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const KeySchedule keys = keys_from_host(keys_host);
   if (fast_rng) {
-    sample_normals_kernel<true><<<grid, KBLOCK, 0, s>>>(out, count, k0, k1);
+    sample_normals_kernel<true><<<grid, KBLOCK, 0, s>>>(out, count, keys);
   } else {
-    sample_normals_kernel<false><<<grid, KBLOCK, 0, s>>>(out, count, k0, k1);
+    sample_normals_kernel<false><<<grid, KBLOCK, 0, s>>>(out, count, keys);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -364,26 +587,29 @@ using KLayout = Layout<KN, KP, KTV != 0, KCTRL != 0>;
 
 extern "C" int fused_mc_row_len() { return KLayout::ROW; }
 extern "C" int fused_mc_fixed_len() { return KLayout::FIXED; }
+extern "C" int fused_mc_chunk_steps() { return KLayout::C; }
+extern "C" int fused_mc_smem_bytes() { return KLayout::SMEM; }
 
-// `fixed_host` is a host array of fused_mc_fixed_len() floats, passed to
-// the kernel by value (it lands in the constant bank).
+// `fixed_host` (fused_mc_fixed_len() floats) and `keys_host` (the 20
+// round keys) are host arrays, passed to the kernel by value: they land
+// in the constant bank.
 extern "C" int fused_mc_launch(const float* path, const float* fixed_host,
-                               int steps, int samples, uint32_t member_offset,
-                               uint32_t k0, uint32_t k1, int fast_rng,
-                               float* partials, void* stream) {
-  Fixed<KLayout::FIXED> fx;
-  for (int i = 0; i < KLayout::FIXED; ++i) fx.v[i] = fixed_host[i];
-  const dim3 grid((samples + KBLOCK - 1) / KBLOCK);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fast_rng) {
-    fused_mc_kernel<KN, KP, KTV != 0, KCTRL != 0, true>
-        <<<grid, KBLOCK, 0, s>>>(path, fx, steps, samples, member_offset, k0,
-                                 k1, partials);
-  } else {
-    fused_mc_kernel<KN, KP, KTV != 0, KCTRL != 0, false>
-        <<<grid, KBLOCK, 0, s>>>(path, fx, steps, samples, member_offset, k0,
-                                 k1, partials);
+                               const uint32_t* keys_host, int steps,
+                               int samples, uint32_t member_offset,
+                               int fast_rng, float* partials, void* stream) {
+  Params<KLayout::FIXED> prm;
+  for (int i = 0; i < KLayout::FIXED; ++i) prm.v[i] = fixed_host[i];
+  prm.keys = keys_from_host(keys_host);
+  auto kernel = fast_rng ? fused_mc_kernel<KN, KP, KTV != 0, KCTRL != 0, true>
+                         : fused_mc_kernel<KN, KP, KTV != 0, KCTRL != 0, false>;
+  if (KLayout::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, KLayout::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  const dim3 grid((samples + KBLOCK - 1) / KBLOCK);
+  kernel<<<grid, KBLOCK, KLayout::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      path, prm, steps, samples, member_offset, partials);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

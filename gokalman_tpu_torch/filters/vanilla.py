@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import linalg
+from .._device import resolve_device
 from ..noise import Noise, measurement_sample, process_sample
 
 
@@ -63,8 +64,11 @@ def new(x0, p0, f, g, h, noise: Noise, *, dtype=None, device=None):
 
     Every tensor, the noise model's included, takes x0's dtype and
     device (or `dtype`/`device` when given): torch does not promote
-    mixed float32/float64 products the way JAX does.
+    mixed float32/float64 products the way JAX does.  Host arrays with
+    no `device` go to the card, or to the device of the first tensor
+    among x0, p0, f, h.
     """
+    device = resolve_device(device, x0, p0, f, h)
     x0 = torch.as_tensor(x0, dtype=dtype, device=device)
     dtype, device = x0.dtype, x0.device
     noise = Noise(*(torch.as_tensor(a, dtype=dtype, device=device)

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import linalg
+from ._device import resolve_device
 
 
 class Noise(NamedTuple):
@@ -44,14 +45,18 @@ def _as_matrix(a, dtype, device) -> torch.Tensor:
 
 def noiseless(q, r, *, dtype: Optional[torch.dtype] = None,
               device=None) -> Noise:
-    """Zero-sampling noise carrying Q and R (reference: noise.go:23-64)."""
+    """Zero-sampling noise carrying Q and R (reference: noise.go:23-64).
+    Tensors go to `device`, else q's or r's, else the card."""
+    device = resolve_device(device, q, r)
     q = _as_matrix(q, dtype, device)
     r = _as_matrix(r, dtype, device)
     return Noise(q, r, torch.zeros_like(q), torch.zeros_like(r))
 
 
 def awgn(q, r, *, dtype: Optional[torch.dtype] = None, device=None) -> Noise:
-    """Additive white Gaussian noise (reference: noise.go:109-164)."""
+    """Additive white Gaussian noise (reference: noise.go:109-164).
+    Tensors go to `device`, else q's or r's, else the card."""
+    device = resolve_device(device, q, r)
     q = _as_matrix(q, dtype, device)
     r = _as_matrix(r, dtype, device)
     return Noise(q, r, _safe_chol(q), _safe_chol(r))

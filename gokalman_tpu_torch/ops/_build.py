@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: One record per library built or loaded in this process (source,
-#: defines, build seconds or 0 when cached, and nvcc's ptxas report).
+#: defines, path, build seconds or 0 when cached, and nvcc's ptxas
+#: report).
 records: List[dict] = []
 
 
@@ -73,6 +74,6 @@ def load(source: str, defines: Dict[str, int]) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     _loaded[tag] = lib
     records.append({"source": source, "defines": dict(defines),
-                    "seconds": seconds,
+                    "path": str(so), "seconds": seconds,
                     "ptxas": log.read_text() if log.exists() else ""})
     return lib

@@ -18,10 +18,14 @@ CUDA device, and raises if the build or the launch fails; it takes the
 plain PyTorch version only for tensors on the CPU.  `launches` counts
 kernel launches, one per launch, nowhere else.
 
-Path row layout per step (float32): K [n,p], P⁺⁻¹ [n,n], S⁻¹ [p,p],
-then with `tv` H_k [p,n] and chol R_k [p,p], then with `ctrl` G u_k
-[n].  Fixed array: F, L_q, H, L_R, x0, L0 (row-major).  The kernel's
-`Layout` struct mirrors `_layout`.
+Path row layout per step (float32): K [n,p], the NEES weights P⁺⁻¹
+and the NIS weights S⁻¹ as packed upper triangles (row-major, the
+off-diagonal entries pre-summed: P_ij + P_ji), then with `tv` H_k [p,n]
+and chol R_k [p,p], then with `ctrl` G u_k [n].  Each segment starts on
+a multiple of 4 floats (16 bytes): the kernel bulk-copies chunks of
+rows into shared memory and reads them as float4s.  Fixed array: F,
+L_q, H, L_R, x0, L0 (row-major).  The kernel's `Layout` struct mirrors
+`_layout`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from torch import nn
 
 from .. import linalg
+from .._device import resolve_device
 from ..filters import vanilla
 from . import philox
 from .ensemble import ChiSquareResult, covariance_path, pool_moments
@@ -52,18 +57,48 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def _pad4(k: int) -> int:
+    return -(-k // 4) * 4
+
+
+def _tri(k: int) -> int:
+    return k * (k + 1) // 2
+
+
 def _layout(n: int, p: int, tv: bool, ctrl: bool) -> dict:
-    lay = {"k": 0, "pinv": n * p, "sinv": n * p + n * n}
-    end = lay["sinv"] + p * p
+    """Offsets (floats) of the path row's segments, its padded length
+    `row`, and the fixed array's length (csrc/fused_mc.cu:Layout)."""
+    sizes = [("k", n * p), ("pinv", _tri(n)), ("sinv", _tri(p))]
     if tv:
-        lay["h"], lay["lr"] = end, end + p * n
-        end += p * n + p * p
+        sizes += [("h", p * n), ("lr", p * p)]
     if ctrl:
-        lay["gu"] = end
-        end += n
+        sizes.append(("gu", n))
+    lay, end = {}, 0
+    for name, size in sizes:
+        lay[name] = end
+        end += _pad4(size)
     lay["row"] = end
     lay["fixed"] = 3 * n * n + p * n + p * p + n
     return lay
+
+
+def _pack_sym(m: torch.Tensor) -> torch.Tensor:
+    """[T, k(k+1)/2] packed upper triangles of [T, k, k] weights:
+    M_ii, then M_ij + M_ji for j > i (so e·(M e) = Σ_i≤j w_ij e_i e_j)."""
+    k = m.shape[-1]
+    i, j = torch.triu_indices(k, k, device=m.device)
+    return torch.where(i == j, m[:, i, j], m[:, i, j] + m[:, j, i])
+
+
+def _unpack_sym(w: torch.Tensor, k: int) -> torch.Tensor:
+    """The symmetric [k, k] matrix of a packed triangle (`_pack_sym`):
+    its quadratic form is the packed weights' one."""
+    i, j = torch.triu_indices(k, k, device=w.device)
+    half = torch.where(i == j, w, 0.5 * w)
+    m = torch.zeros(k, k, dtype=w.dtype, device=w.device)
+    m[i, j] = half
+    m[j, i] = half
+    return m
 
 
 @linalg.highp
@@ -85,12 +120,16 @@ def precompute_path(model: vanilla.Model, state0: vanilla.State, steps: int,
 
 
 def _pack_path(path) -> torch.Tensor:
-    """[T, row_len] float32 rows of a precompute_path result."""
+    """[T, row] float32 rows (`_layout`) of a precompute_path result."""
     k_path, s_inv, p_inv, hs_m, lrs, gus = path
     t = k_path.shape[0]
-    cols = [k_path, p_inv, s_inv] + [a for a in (hs_m, lrs, gus) if a is not None]
-    return torch.cat([c.reshape(t, -1) for c in cols], dim=1).to(
-        torch.float32).contiguous()
+    segs = [k_path, _pack_sym(p_inv), _pack_sym(s_inv)]
+    segs += [a for a in (hs_m, lrs, gus) if a is not None]
+    cols = []
+    for seg in segs:
+        seg = seg.reshape(t, -1)
+        cols.append(nn.functional.pad(seg, (0, _pad4(seg.shape[1]) - seg.shape[1])))
+    return torch.cat(cols, dim=1).to(torch.float32).contiguous()
 
 
 def _pack_fixed(f, lq, h, lr, x0, l0) -> torch.Tensor:
@@ -183,9 +222,9 @@ def _partials_ref(rows, fixed, n, p, tv, ctrl, samples, seed, fast_rng,
     x_e = x0[:, None].expand(n, samples)
     parts = []
     for t, row in enumerate(rows):
-        k = row[lay["k"]:lay["pinv"]].view(n, p)
-        p_inv = row[lay["pinv"]:lay["sinv"]].view(n, n)
-        s_inv = row[lay["sinv"]:lay["sinv"] + p * p].view(p, p)
+        k = row[lay["k"]:lay["k"] + n * p].view(n, p)
+        p_inv = _unpack_sym(row[lay["pinv"]:lay["pinv"] + _tri(n)], n)
+        s_inv = _unpack_sym(row[lay["sinv"]:lay["sinv"] + _tri(p)], p)
         h_t = row[lay["h"]:lay["h"] + p * n].view(p, n) if tv else h
         lr_t = row[lay["lr"]:lay["lr"] + p * p].view(p, p) if tv else lr
         gu = row[lay["gu"]:lay["gu"] + n, None] if ctrl else 0.0
@@ -212,12 +251,11 @@ def load_fused_mc(n: int, p: int, tv: bool, ctrl: bool):
     lib = _build.load(SOURCE, {"KN": n, "KP": p, "KTV": int(tv),
                                "KCTRL": int(ctrl), "KBLOCK": BLOCK})
     lib.fused_mc_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]
-    lib.fused_mc_launch.restype = ctypes.c_int
-    lib.fused_mc_row_len.restype = ctypes.c_int
-    lib.fused_mc_fixed_len.restype = ctypes.c_int
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    for fn in ("launch", "row_len", "fixed_len", "chunk_steps", "smem_bytes"):
+        getattr(lib, f"fused_mc_{fn}").restype = ctypes.c_int
     lay = _layout(n, p, tv, ctrl)
     if (lib.fused_mc_row_len(), lib.fused_mc_fixed_len()) != (lay["row"], lay["fixed"]):
         raise RuntimeError("csrc/fused_mc.cu Layout disagrees with _layout")
@@ -229,8 +267,10 @@ def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
     """Launch K1; [blocks, 2 + 2n, T] float32 partials on rows.device."""
     lay = _layout(n, p, tv, ctrl)
     if rows.dtype != torch.float32 or not rows.is_contiguous() \
-            or rows.dim() != 2 or rows.shape[1] != lay["row"]:
-        raise ValueError(f"path rows must be contiguous float32 [T, {lay['row']}]")
+            or rows.dim() != 2 or rows.shape[1] != lay["row"] \
+            or rows.data_ptr() % 16:
+        raise ValueError(f"path rows must be contiguous, 16-byte aligned "
+                         f"float32 [T, {lay['row']}]")
     if fixed_host.dtype != np.float32 or fixed_host.shape != (lay["fixed"],) \
             or not fixed_host.flags.c_contiguous:
         raise ValueError(f"fixed must be contiguous float32 [{lay['fixed']}]")
@@ -238,12 +278,13 @@ def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
     steps = rows.shape[0]
     out = torch.empty((_blocks(samples), 2 + 2 * n, steps),
                       dtype=torch.float32, device=rows.device)
-    k0, k1 = philox.key_words(seed)
+    keys = philox.key_schedule(seed)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_mc_launch(rows.data_ptr(), fixed_host.ctypes.data,
-                                  steps, samples, member_offset, k0, k1,
-                                  int(fast_rng), out.data_ptr(), stream)
+                                  keys.ctypes.data, steps, samples,
+                                  member_offset, int(fast_rng),
+                                  out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"fused_mc kernel launch failed: CUDA error {err}")
     launches["fused_mc"] += 1
@@ -372,8 +413,8 @@ def load_sample_normals():
 
     lib = _build.load(SOURCE, {"KBLOCK": BLOCK})
     lib.sample_normals_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32, ctypes.c_uint32,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
     lib.sample_normals_launch.restype = ctypes.c_int
     return lib
 
@@ -398,22 +439,22 @@ def sample_normals(count: int, seed: int, generator: str = "box_muller",
                    device=None) -> torch.Tensor:
     """Draw `count` (approximately) standard normals with one of the
     kernels' generators: "box_muller" (exact) or "clt" (the fast_rng
-    path).  K2 on a CUDA device, the plain version on the CPU
-    (pallas_mc.py:sample_normals_pallas)."""
+    path).  K2 on a CUDA device (the default), the plain version on
+    the CPU (pallas_mc.py:sample_normals_pallas)."""
     fast = _generator_flag(generator)
     if not 0 < count < 2**33:
         raise ValueError(f"count must be in (0, 2**33), got {count}")
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     if device.type == "cpu":
         return sample_normals_ref(count, seed, generator, device)
     if device.type != "cuda":
         raise ValueError(f"no sample_normals path for device {device}")
     lib = load_sample_normals()
     out = torch.empty(count, dtype=torch.float32, device=device)
-    k0, k1 = philox.key_words(seed)
+    keys = philox.key_schedule(seed)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sample_normals_launch(out.data_ptr(), count, k0, k1,
+        err = lib.sample_normals_launch(out.data_ptr(), count, keys.ctypes.data,
                                         int(fast), stream)
     if err:
         raise RuntimeError(f"sample_normals kernel launch failed: CUDA error {err}")

@@ -11,6 +11,10 @@ products overflow int64.  Words are kept as int64 tensors holding
 values in [0, 2**32), and each product is split at 16 bits of the
 constant (see `_mulhilo`).
 
+Keys.  The seed's two 32-bit words are round 0's key; Random123 bumps
+them by (W0, W1) each round.  `key_schedule` lists all ten rounds'
+keys, which both kernels take from the host as launch parameters.
+
 Counters.  Member m's draws at step t use counter (m, t + 1, g, 0) for
 draw group g = 0, 1, ...; its initial-state draws use (m, 0, g, 0).
 The key is the 64-bit seed.  Every (seed, member, step, group) has its
@@ -25,11 +29,13 @@ popcount-CLT map takes word i to normal i (`_normal_clt`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
 MASK32 = 0xFFFFFFFF
+ROUNDS = 10
 INIT_DRAW = 0  # counter word 1 of the initial-state draws; step t uses t + 1
 
 # Popcount-CLT normal: var(popcount24 + dither) = 6 + (1 - 2**-16) / 12.
@@ -40,6 +46,20 @@ def key_words(seed: int):
     """The two 32-bit key words of a (64-bit, two's complement) seed."""
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
     return s & MASK32, s >> 32
+
+
+def round_keys(key):
+    """The ROUNDS (k0, k1) round keys of Philox4x32-10 under `key`."""
+    k0, k1 = key
+    return [((k0 + r * W0) & MASK32, (k1 + r * W1) & MASK32)
+            for r in range(ROUNDS)]
+
+
+def key_schedule(seed: int) -> np.ndarray:
+    """uint32 [2·ROUNDS]: every round's k0 word, then every round's k1
+    word, of the seed's key (csrc/fused_mc.cu:KeySchedule)."""
+    k0s, k1s = zip(*round_keys(key_words(seed)))
+    return np.array(k0s + k1s, dtype=np.uint32)
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -58,13 +78,10 @@ def philox4x32_10(ctr, key):
     """Philox4x32-10 of a counter (four int64 tensors, broadcastable)
     under a key (two ints); returns the four output words."""
     c0, c1, c2, c3 = ctr
-    k0, k1 = key
-    for _ in range(10):
+    for k0, k1 in round_keys(key):
         lo0, hi0 = _mulhilo(c0, M0)
         lo1, hi1 = _mulhilo(c2, M1)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-        k0 = (k0 + W0) & MASK32
-        k1 = (k1 + W1) & MASK32
     return c0, c1, c2, c3
 
 

@@ -142,14 +142,14 @@ def test_highp_context_and_decorator_restore_tf32_flags():
 def test_noise_factors_match_jax(kind):
     q = _spd(4, 7, 1e3)
     r = _spd(2, 8)
-    got = getattr(noise, kind)(q, r)
+    got = getattr(noise, kind)(q, r, device="cpu")
     want = getattr(jnoise, kind)(q, r)
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), np.asarray(w), **TIGHT)
 
 
 def test_noise_zero_and_scalar_inputs_match_jax():
-    got = noise.awgn(np.zeros((3, 3)), 0.25, dtype=F64)
+    got = noise.awgn(np.zeros((3, 3)), 0.25, dtype=F64, device="cpu")
     want = jnoise.awgn(np.zeros((3, 3)), 0.25)
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), np.asarray(w), **TIGHT)
@@ -157,7 +157,7 @@ def test_noise_zero_and_scalar_inputs_match_jax():
 
 
 def test_noise_samples_use_the_generator_and_factor():
-    nz = noise.awgn(_spd(3, 1), _spd(2, 2))
+    nz = noise.awgn(_spd(3, 1), _spd(2, 2), device="cpu")
     g1 = torch.Generator().manual_seed(5)
     w = noise.process_sample(nz, g1)
     v = noise.measurement_sample(nz, g1)
@@ -166,7 +166,7 @@ def test_noise_samples_use_the_generator_and_factor():
     zv = torch.randn(2, generator=g2, dtype=F64)
     torch.testing.assert_close(w, nz.sqrt_q @ zw, rtol=0, atol=0)
     torch.testing.assert_close(v, nz.sqrt_r @ zv, rtol=0, atol=0)
-    quiet = noise.noiseless(_spd(3, 1), _spd(2, 2))
+    quiet = noise.noiseless(_spd(3, 1), _spd(2, 2), device="cpu")
     assert not noise.process_sample(quiet, g1).any()
 
 
@@ -175,7 +175,7 @@ def test_van_loan_matches_jax(dt):
     a = np.block([[np.zeros((3, 3)), np.eye(3)], [-0.3 * np.eye(3), -0.1 * np.eye(3)]])
     gamma = np.vstack([np.zeros((3, 3)), np.eye(3)])
     w = 0.02 * np.eye(3)
-    f, q, ok = c2d.van_loan(a, gamma, w, dt)
+    f, q, ok = c2d.van_loan(a, gamma, w, dt, device="cpu")
     jf, jq, jok = jc2d.van_loan(a, gamma, w, dt)
     np.testing.assert_allclose(_np(f), np.asarray(jf), **TIGHT)
     np.testing.assert_allclose(_np(q), np.asarray(jq), **TIGHT)
@@ -205,7 +205,8 @@ def _jerkcar_models():
     jm, js = jvanilla.new(jjerkcar.X0, jjerkcar.P0, jjerkcar.F, jjerkcar.G,
                           jjerkcar.H1, jnoise.awgn(jjerkcar.Q, jjerkcar.R))
     tm, ts = vanilla.new(jerkcar.X0, jerkcar.P0, jerkcar.F, jerkcar.G,
-                         jerkcar.H1, noise.awgn(jerkcar.Q, jerkcar.R), dtype=F64)
+                         jerkcar.H1, noise.awgn(jerkcar.Q, jerkcar.R, device="cpu"),
+                         dtype=F64, device="cpu")
     return (jm, js), (tm, ts)
 
 
@@ -273,12 +274,13 @@ def test_vanilla_run_draws_from_the_generator():
 def test_new_checks_dimensions():
     with pytest.raises(ValueError, match="dimensions must agree"):
         vanilla.new(np.zeros(3), np.eye(3), np.eye(2), None, np.eye(1, 3),
-                    noise.awgn(np.eye(2), np.eye(1)))
+                    noise.awgn(np.eye(2), np.eye(1), device="cpu"), device="cpu")
     with pytest.raises(ValueError, match="dimensions must agree"):
         vanilla.new(np.zeros(3), np.eye(3), np.eye(3), None, np.eye(1, 2),
-                    noise.awgn(np.eye(3), np.eye(1)))
+                    noise.awgn(np.eye(3), np.eye(1), device="cpu"), device="cpu")
     model, _ = vanilla.new(np.zeros(3), np.eye(3), np.eye(3), np.zeros((3, 1)),
-                           np.eye(1, 3), noise.awgn(np.eye(3), np.eye(1)))
+                           np.eye(1, 3), noise.awgn(np.eye(3), np.eye(1), device="cpu"),
+                           device="cpu")
     assert model.g is None  # all-zero control matrix, like the JAX package
 
 
@@ -289,14 +291,15 @@ def test_convert_round_trip_runs_like_jax(dtype):
     (jm, js), _ = _jerkcar_models()
     fields = [np.asarray(a) for a in (jm.f, jm.g, jm.h, jm.noise.q, jm.noise.r,
                                       jm.noise.sqrt_q, jm.noise.sqrt_r)]
-    tm = convert.model_from_numpy(*fields, dtype=dtype)
-    ts = convert.state_from_numpy(np.asarray(js.x), np.asarray(js.p), dtype=dtype)
+    tm = convert.model_from_numpy(*fields, dtype=dtype, device="cpu")
+    ts = convert.state_from_numpy(np.asarray(js.x), np.asarray(js.p), dtype=dtype,
+                                  device="cpu")
     back = [tm.f, tm.g, tm.h, *tm.noise]
     for got, want in zip(back, fields):
         assert got.dtype == dtype
         np.testing.assert_array_equal(_np(got), want.astype(_np(got).dtype))
     assert int(ts.k) == 0 and ts.x.dtype == dtype
-    assert convert.model_from_numpy(*fields[:1], None, *fields[2:]).g is None
+    assert convert.model_from_numpy(*fields[:1], None, *fields[2:], device="cpu").g is None
     if dtype is torch.float64:
         ys, us, hs, rs, masks, ws, vs = _jerkcar_inputs(20, 6)
         _, jests = jvanilla.run(jm, js, jnp.asarray(ys), jnp.asarray(us),

@@ -48,9 +48,9 @@ def _cv6_arrays(g=False):
 def _models(arrays, noiseless=False):
     x0, p0, f, g, h, q, r = arrays
     jn = (jnoise.noiseless if noiseless else jnoise.awgn)(q, r)
-    tn = (noise.noiseless if noiseless else noise.awgn)(q, r, dtype=F64)
+    tn = (noise.noiseless if noiseless else noise.awgn)(q, r, dtype=F64, device="cpu")
     return (jvanilla.new(x0, p0, f, g, h, jn),
-            vanilla.new(x0, p0, f, g, h, tn, dtype=F64))
+            vanilla.new(x0, p0, f, g, h, tn, dtype=F64, device="cpu"))
 
 
 def _jerkcar_arrays():

@@ -171,11 +171,11 @@ def test_sample_normals_plain_draws_and_statistics(generator):
     initial-state draw group, a ragged count is cut, and 2**18 draws
     pass the moment/tail gates (6 standard errors)."""
     fast = generator == "clt"
-    z = fused_mc.sample_normals(1003, 5, generator)
+    z = fused_mc.sample_normals(1003, 5, generator, device="cpu")
     assert z.shape == (1003,) and z.dtype == F32
     init = philox.normals(5, torch.arange(251), philox.INIT_DRAW, 4, fast)
     torch.testing.assert_close(z, init.T.reshape(-1)[:1003], rtol=0, atol=0)
-    z = _np(fused_mc.sample_normals(2**18, 11, generator)).astype(np.float64)
+    z = _np(fused_mc.sample_normals(2**18, 11, generator, device="cpu")).astype(np.float64)
     n = z.size
     assert abs(z.mean()) < 6 / np.sqrt(n)
     assert abs(z.std() - 1.0) < 6 / np.sqrt(n)
@@ -222,8 +222,9 @@ def _to_port(jm, js):
     g = None if jm.g is None else np.asarray(jm.g)
     tm = convert.model_from_numpy(
         np.asarray(jm.f), g, np.asarray(jm.h), *(np.asarray(a) for a in jm.noise),
-        dtype=F32)
-    return tm, convert.state_from_numpy(np.asarray(js.x), np.asarray(js.p), dtype=F32)
+        dtype=F32, device="cpu")
+    return tm, convert.state_from_numpy(np.asarray(js.x), np.asarray(js.p), dtype=F32,
+                                        device="cpu")
 
 
 @pytest.mark.parametrize("case", ["cv6", "cv6_fast_rng", "jerkcar_tv_ctrl"])
@@ -274,10 +275,11 @@ def _cv6_port(noiseless=False, g=False):
     i3, z3 = np.eye(3), np.zeros((3, 3))
     f, q = c2d.van_loan_host(np.block([[z3, i3], [z3, z3]]),
                              np.vstack([z3, i3]), 0.02 * i3, 0.1)
-    nz = (noise.noiseless if noiseless else noise.awgn)(q, 0.5 * i3, dtype=F32)
+    nz = (noise.noiseless if noiseless else noise.awgn)(q, 0.5 * i3, dtype=F32,
+                                                        device="cpu")
     gmat = np.vstack([0.005 * i3, 0.1 * i3]) if g else None
     return vanilla.new(np.array([1.0, -2.0, 0.5, 0.1, 0.2, -0.3]), np.eye(6), f,
-                       gmat, np.hstack([i3, z3]), nz, dtype=F32)
+                       gmat, np.hstack([i3, z3]), nz, dtype=F32, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["cv6_ctrl", "jerkcar_tv_ctrl"])
@@ -290,9 +292,10 @@ def test_plain_k1_matches_ensemble_oracle_without_noise(case, monkeypatch):
         tm, ts = _cv6_port(noiseless=True, g=True)
         sched = dict(controls=np.random.default_rng(3).standard_normal((steps, 3)))
     else:
-        tm, ts = vanilla.new(jerkcar.X0, jerkcar.P0, jerkcar.F, jerkcar.G,
-                             jerkcar.H1, noise.noiseless(jerkcar.Q, jerkcar.R, dtype=F32),
-                             dtype=F32)
+        tm, ts = vanilla.new(jerkcar.X0, jerkcar.P0, jerkcar.F, jerkcar.G, jerkcar.H1,
+                             noise.noiseless(jerkcar.Q, jerkcar.R, dtype=F32,
+                                             device="cpu"),
+                             dtype=F32, device="cpu")
         _, us, hs, rs, masks = jerkcar.schedule(*(np.linspace(-1, 1, steps + k)
                                                   for k in (0, 0, 1)))
         sched = dict(controls=us, hs=hs, rs=rs, meas_masks=masks)
@@ -367,8 +370,17 @@ def test_precomputed_path_and_layout():
     lay = fused_mc._layout(6, 3, False, True)
     assert a.rows.shape == (9, lay["row"]) and a.fixed.shape == (lay["fixed"],)
     assert a._fixed_host.dtype == np.float32
+    # K [6,3] 18 -> 20, triangle of P⁺⁻¹ 21 -> 24, of S⁻¹ 6 -> 8, G u 6 -> 8.
+    assert (lay["pinv"], lay["sinv"], lay["gu"], lay["row"]) == (20, 44, 52, 60)
+    rows = a.rows[:, :lay["row"]]
+    k_path, s_inv, p_inv, _, _, gus = path
+    torch.testing.assert_close(rows[:, :18], k_path.reshape(9, 18).float())
+    torch.testing.assert_close(rows[:, 52:58], gus.float())
+    assert not rows[:, [18, 19, 41, 42, 43, 50, 51, 58, 59]].any()  # padding
+    p_sym = fused_mc._unpack_sym(rows[3, 20:41], 6)
+    torch.testing.assert_close(p_sym, (0.5 * (p_inv[3] + p_inv[3].T)).float())
     lay_tv = fused_mc._layout(4, 2, True, True)
-    assert (lay_tv["h"], lay_tv["lr"], lay_tv["gu"], lay_tv["row"]) == (28, 36, 40, 44)
+    assert (lay_tv["h"], lay_tv["lr"], lay_tv["gu"], lay_tv["row"]) == (24, 32, 36, 40)
 
 
 def test_guards():
@@ -377,13 +389,14 @@ def test_guards():
     with pytest.raises(ValueError, match="samples"):
         mod(1, 0)
     with pytest.raises(ValueError, match="unknown generator"):
-        fused_mc.sample_normals(10, 0, "uniform")
+        fused_mc.sample_normals(10, 0, "uniform", device="cpu")
     with pytest.raises(ValueError, match="count"):
-        fused_mc.sample_normals(0, 0)
+        fused_mc.sample_normals(0, 0, device="cpu")
     with pytest.raises(ValueError, match="no sample_normals path"):
         fused_mc.sample_normals(10, 0, device="meta")
     n = 17
     big, bs = vanilla.new(np.zeros(n), np.eye(n), np.eye(n), None, np.eye(1, n),
-                          noise.awgn(np.eye(n), np.eye(1)), dtype=F32)
+                          noise.awgn(np.eye(n), np.eye(1), device="cpu"), dtype=F32,
+                          device="cpu")
     with pytest.raises(ValueError, match="n <= 16"):
         fused_mc.MonteCarloChiSquare(big, bs, 4)

@@ -60,8 +60,9 @@ def _models(arrays, noiseless=False):
                           (jnoise.noiseless if noiseless else jnoise.awgn)(q, r))
     tm = convert.model_from_numpy(
         np.asarray(jm.f), None if jm.g is None else np.asarray(jm.g),
-        np.asarray(jm.h), *(np.asarray(a) for a in jm.noise))
-    return (jm, js), (tm, convert.state_from_numpy(np.asarray(js.x), np.asarray(js.p)))
+        np.asarray(jm.h), *(np.asarray(a) for a in jm.noise), device="cpu")
+    return (jm, js), (tm, convert.state_from_numpy(np.asarray(js.x), np.asarray(js.p),
+                                                   device="cpu"))
 
 
 # --- ops.ensemble.filter_bank ---------------------------------------------
@@ -186,7 +187,7 @@ def test_summaries_match_jax_strings(with_g):
     test = vanilla.Estimate(*(a[-1] for a in tests_))
     # The same arrays format to the same string; so do the two
     # packages' own runs (equal to 1e-9, printed to 6 digits).
-    same = convert.estimate_from_numpy(*(np.asarray(a) for a in jest))
+    same = convert.estimate_from_numpy(*(np.asarray(a) for a in jest), device="cpu")
     assert types.estimate_summary(same) == jtypes.estimate_summary(jest)
     assert types.estimate_summary(test) == jtypes.estimate_summary(jest)
 
@@ -206,7 +207,7 @@ def test_truth_error_matches_jax(k, with_offset):
     est, xs, ys, off = _truth_case(np.random.default_rng(6))
     one = [a[2] for a in est]
     jest = jvanilla.Estimate(*(jnp.asarray(a) for a in one))
-    test = convert.estimate_from_numpy(*one)
+    test = convert.estimate_from_numpy(*one, device="cpu")
     offset = off if with_offset else None
     want = jtruth.error(jtruth.BatchGroundTruth(jnp.asarray(xs), jnp.asarray(ys)),
                         k, jest, None if offset is None else jnp.asarray(offset))
@@ -229,7 +230,8 @@ def test_truth_error_all_matches_jax(which):
                                  None if ys_ is None else torch.as_tensor(ys_))
     want = jtruth.error_all(jgt, jvanilla.Estimate(*(jnp.asarray(a) for a in est)),
                             jnp.asarray(off))
-    got = truth.error_all(tgt, convert.estimate_from_numpy(*est), torch.as_tensor(off))
+    got = truth.error_all(tgt, convert.estimate_from_numpy(*est, device="cpu"),
+                          torch.as_tensor(off))
     for name, g_, w_ in zip(vanilla.Estimate._fields, got, want):
         _assert_close(g_, w_, TIGHT, name)
 
@@ -308,7 +310,7 @@ def test_as_csv_is_byte_identical_to_jax_python_fallback(monkeypatch):
     (jm, js), _ = _models(_robot_arrays())
     jruns = jmontecarlo.monte_carlo(jm, js, samples, steps, jax.random.PRNGKey(1))
     truns = convert.runs_from_numpy([np.asarray(a) for a in jruns.estimates],
-                                    jruns.runs, jruns.steps)
+                                    jruns.runs, jruns.steps, device="cpu")
     monkeypatch.setattr(jnative, "format_csv", lambda matrix: None)
     want = jruns.as_csv(["x", "v", "unused"])
     got = truns.as_csv(["x", "v", "unused"])
@@ -330,7 +332,7 @@ def test_chi_square_on_the_same_runs_matches_jax(with_controls):
     jruns = jmontecarlo.monte_carlo(jm, js, samples, steps, jax.random.PRNGKey(2),
                                     controls=jus)
     truns = convert.runs_from_numpy([np.asarray(a) for a in jruns.estimates],
-                                    jruns.runs, jruns.steps)
+                                    jruns.runs, jruns.steps, device="cpu")
     want = jchisquare.chi_square(jm, js, jruns, controls=jus)
     got = chisquare.chi_square(tm, ts, truns, controls=us)
     _assert_close(got[0], want[0], msg="nis")

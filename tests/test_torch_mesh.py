@@ -113,7 +113,8 @@ def _cv6_f64(g=True):
                              0.02 * i3, 0.1)
     return vanilla.new(np.array([1.0, -2.0, 0.5, 0.1, 0.2, -0.3]), np.eye(6), f,
                        np.vstack([0.005 * i3, 0.1 * i3]) if g else None,
-                       np.hstack([i3, z3]), noise.awgn(q, 0.5 * i3), dtype=F64)
+                       np.hstack([i3, z3]), noise.awgn(q, 0.5 * i3, device="cpu"),
+                       dtype=F64, device="cpu")
 
 
 def test_sharded_mc_chi_square_equals_unsharded():
@@ -185,8 +186,10 @@ def test_sharded_fused_with_stubbed_draws_matches_jax_sharded_kernel():
             jm, js, samples_per_device=spd, steps=steps, seed=0,
             mesh=jmesh.ensemble_mesh(jax.devices()[:WORLD]), init_spread=True)
     tm = convert.model_from_numpy(np.asarray(jm.f), None, np.asarray(jm.h),
-                                  *(np.asarray(a) for a in jm.noise), dtype=F32)
-    ts = convert.state_from_numpy(np.asarray(js.x), np.asarray(js.p), dtype=F32)
+                                  *(np.asarray(a) for a in jm.noise), dtype=F32,
+                                  device="cpu")
+    ts = convert.state_from_numpy(np.asarray(js.x), np.asarray(js.p), dtype=F32,
+                                  device="cpu")
     n, p = 4, 2
     z0 = _stub_draws(n, False)[:, None].expand(n, spd).contiguous()
     wv = _stub_draws(n + p, False)[:, None].expand(steps, n + p, spd).contiguous()
