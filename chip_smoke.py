@@ -17,11 +17,21 @@ with no `device=` (the port's entry points default to the card).  Then
 the sharded path, `sharded_mc_chi_square_fused`, at the same size: in
 an NCCL group of one rank, and on two spawned ranks of a gloo group on
 the one card (49,152 members each), each held to the one-rank result.
-Last, the kernels' times beside their plain versions, `torch.randn`
+Then the kernels' times beside their plain versions, `torch.randn`
 for K2 and each kernel's bound, and K1's device time with its shares of
-the bounds.  Every phase raises on failure; there is no CPU or
-plain-version fallback.  The last line of standard output is one JSON
-object with the device; the line before it lists each kernel's
+the bounds.  Last, the paths that are plain PyTorch and launch no
+kernel of the port's own: bench.py's smoother legs (filter_parallel +
+smooth_parallel over 256 x 1,024 and 16 x 65,536 streams x steps in
+f32, with bench.py's RMSE gate, the time per call, peak memory, kernel
+launches per call and the kernels with the most device time) and their
+float64 parity against `filter_bank` and `rts_smoother`; the
+time-sharded filter/smoother on one 65,536-step f64 sequence in an NCCL
+group of one rank (held to the single-device scan) and on two gloo
+ranks on the one card (held to world 1); and the information,
+square-root, SRIF, hybrid and batch filters and the smoothers in f64,
+each against its reference.  Every phase raises on failure; there is
+no CPU or plain-version fallback.  The last line of standard output is
+one JSON object with the device; the line before it lists each kernel's
 launches on the counted paths, its error against the plain version, its
 times and its bound.  Without CUDA it exits non-zero and prints no
 result.
@@ -48,7 +58,11 @@ K2_TOL = {"box_muller": 1e-5, "clt": 0.0}
 # of the traces to 1-ulp noise perturbations is ~1e-6 relative.
 K1_RTOL, K1_ATOL = 1e-4, 1e-5
 MEMBER_OFFSET = 12_345 * 256  # K1's member offset check: a far rank's members
-WORLD2 = 2  # ranks of the two-process check on the one card
+WORLD2 = 2  # ranks of the two-process checks on the one card
+# bench.py's smoother legs (streams, steps), bench.py:340-366: the
+# serving batch and the long-T single-sequence regime.
+SMOOTHER_SHAPES = ((256, 1_024), (16, 65_536))
+TIME_STEPS = 65_536  # one sequence of the time-sharded scan
 REPLACES = {
     "fused_mc": "gokalman_tpu/ops/pallas_mc.py:596",
     "sample_normals": "gokalman_tpu/ops/pallas_mc.py:164",
@@ -116,14 +130,14 @@ def compare_traces(name, out, ref):
     return max(errs)
 
 
-def main_model(gt, torch, device):
+def main_model(gt, torch, device, dtype=None):
     """bench.py:make_model — 6-state 3D constant velocity, H = position,
-    Van Loan with dt = 0.1, q = 0.02, R = 0.5 I, P0 = I — in float32,
-    from host arrays with no `device=`: the entry points put it on the
-    card (`device`, the current one)."""
+    Van Loan with dt = 0.1, q = 0.02, R = 0.5 I, P0 = I — in float32
+    (or `dtype`), from host arrays with no `device=`: the entry points
+    put it on the card (`device`, the current one)."""
     import numpy as np
 
-    f32 = torch.float32
+    f32 = dtype or torch.float32
     i3, z3 = np.eye(3), np.zeros((3, 3))
     f, q, _ = gt.c2d.van_loan(np.block([[z3, i3], [z3, z3]]), np.vstack([z3, i3]),
                               0.02 * i3, 0.1, check_nyquist=False, dtype=f32)
@@ -690,6 +704,396 @@ def phase_device_times(mod, device):
             f"multiplies (share {with_gen / ms:.1%})")
 
 
+def card_name_and_limit():
+    """The card as `nvidia-smi --query-gpu=name,power.limit` gives it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip(), "nvidia-smi failed")
+    return smi.stdout.strip().splitlines()[0].strip()
+
+
+def smoother_truth(model, st, streams, steps, dtype, generator):
+    """bench.py:87-98 batched over streams: w ~ N(0, Q), v ~ N(0, R) via
+    the model's sampling factors, x_k = F x_{k-1} + w_k, y_k = H x_k + v_k;
+    truth xs [S, T, n] and measurements ys [S, T, p], drawn on the card."""
+    import torch
+
+    n, p = model.f.shape[0], model.h.shape[0]
+    f, h = model.f.to(dtype), model.h.to(dtype)
+    randn = lambda *s: torch.randn(s, generator=generator, dtype=dtype,
+                                   device=model.f.device)
+    wn = randn(streams, steps, n) @ model.noise.sqrt_q.to(dtype).T
+    vn = randn(streams, steps, p) @ model.noise.sqrt_r.to(dtype).T
+    xs = torch.empty_like(wn)
+    x = st.x.to(dtype).expand(streams, n)
+    for k in range(steps):
+        x = torch.addmm(wn[:, k], x, f.T)
+        xs[:, k] = x
+    return xs, xs @ h.T + vn
+
+
+def scan_work(streams, steps, n, p, itemsize):
+    """(FP operations, bytes of the function's inputs and outputs, bytes
+    of the scan elements the combines read and write) of one
+    filter_parallel + smooth_parallel call.  Operations per combine: the
+    filter's 21⅓ n³ + 12 n² (two n x n products and a solve against 2n+1
+    columns through I + C J, the same through I + J C with n+1 columns,
+    two triple products), the smoother's 6 n³ + 2 n²; the odd/even
+    recursion makes ~2T combines per scan.  Bytes: the measurements
+    read once and both passes' means and covariances written once; the
+    scan's own traffic counts each combine reading two elements and
+    writing one (3n² + 2n and 2n² + n words)."""
+    combines = 2 * steps * streams
+    flops = combines * ((64 * n**3) // 3 + 12 * n * n + 6 * n**3 + 2 * n * n)
+    io = itemsize * streams * steps * (p + 2 * (n + n * n))
+    scan = itemsize * combines * 3 * ((3 * n * n + 2 * n) + (2 * n * n + n))
+    return flops, io, scan
+
+
+def launch_profile(fn):
+    """(device kernels, runtime launch calls, device busy ms, the five
+    kernels with the most device time as "name: ms (count)") of one call
+    of `fn`, from torch.profiler; None where it saw no device
+    activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    calls = sum(1 for e in events if e.device_type == DeviceType.CPU
+                and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                               "cuLaunchKernelEx"))
+    if not kernels:
+        return None
+    by_name = {}
+    for e in kernels:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return (len(kernels), calls, sum(ms for ms, _ in by_name.values()),
+            [f"{name[:60]}: {ms:.3f} ms ({count})" for name, (ms, count) in top])
+
+
+def synchronizing_calls(fn):
+    """Messages of the calls in one `fn()` that made the host wait for
+    the card, as torch.cuda's sync debug mode reports them."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message) for w in caught if "synchronizing" in str(w.message)]
+
+
+def phase_smoother(gt, torch, device, card, shapes=SMOOTHER_SHAPES):
+    """bench.py's smoother legs at their published shapes, in float32:
+    bench.py's model and truth recursion, then filter_parallel +
+    smooth_parallel batched over the streams, gated on smoothed
+    truth-RMSE < filtered (bench.py:133-134, 153).  Prints the CUDA-event
+    time per call after a warm-up, stream-steps/s, peak memory, kernel
+    launches per call (torch.profiler) and the call's bounds
+    (`scan_work`); the call must not make the host wait for the card.
+    Returns {shape: record}."""
+    from gokalman_tpu_torch.ops import assoc_scan
+
+    model, st = main_model(gt, torch, device)
+    out = {}
+    for streams, steps in shapes:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        xs, ys = smoother_truth(model, st, streams, steps, torch.float32, gen)
+
+        def call():
+            means, covs = assoc_scan.filter_parallel(model, st, ys)
+            sm, _ = assoc_scan.smooth_parallel(model, means, covs)
+            return means, sm
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        means, sm = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check(bool(torch.isfinite(means).all() and torch.isfinite(sm).all()),
+              f"smoother {streams}x{steps}: non-finite output")
+        rmse_f = float(torch.sqrt(torch.mean((means - xs) ** 2)))
+        rmse_s = float(torch.sqrt(torch.mean((sm - xs) ** 2)))
+        check(rmse_s < rmse_f, f"smoother {streams}x{steps}: smoothed RMSE {rmse_s} "
+              f">= filtered {rmse_f}")
+        ms, _ = cuda_ms(call, 5 if steps <= 4096 else 3, call)
+        syncs = synchronizing_calls(call)
+        check(not syncs, f"smoother {streams}x{steps}: the call waits for the card: "
+              f"{syncs[:3]}")
+        prof = launch_profile(call)
+        flops, io, scan = scan_work(streams, steps, 6, 3, 4)
+        bound = max(io / PEAK_BYTES, flops / PEAK_FP32) * 1e3
+        rate = streams * steps / ms * 1e3
+        launches = ("not measured" if prof is None else
+                    f"{prof[0]} device kernels ({prof[1]} launch calls), device busy "
+                    f"{prof[2]:.3f} ms of the call")
+        log(f"[smoother] {streams}x{steps} f32 on {card}: RMSE filtered {rmse_f:.5f}, "
+            f"smoothed {rmse_s:.5f} (gate smoothed < filtered); {ms:.3f} ms per call "
+            f"(CUDA events), {rate:.4g} stream-steps/s; peak memory {peak / 2**20:.1f} MiB; "
+            f"0 synchronizing calls; "
+            f"{launches}; bounds {flops / PEAK_FP32 * 1e3:.4f} ms by FP32 operations "
+            f"({flops:.4g}), {io / PEAK_BYTES * 1e3:.4f} ms by the function's bytes "
+            f"({io / 2**20:.1f} MiB), {scan / PEAK_BYTES * 1e3:.4f} ms by the scan's "
+            f"element traffic ({scan / 2**20:.1f} MiB)")
+        if prof is not None:
+            log(f"[smoother] {streams}x{steps} kernels with the most device time: "
+                + "; ".join(prof[3]))
+        out[(streams, steps)] = dict(ms=ms, rate=rate, peak=peak, prof=prof, bound=bound)
+    return out
+
+
+def phase_smoother_parity(gt, torch, device, streams=256, steps=1_024, checked=4):
+    """The smoother leg in float64 at 256 x 1,024: filtered means against
+    the sequential ops.ensemble.filter_bank (tests/test_assoc_scan.py:36-41
+    tolerances), and the smoothed moments of `checked` streams against
+    the sequential smoothing.rts_smoother over the same filtered moments
+    (:86-87)."""
+    from gokalman_tpu_torch.filters import smoothing
+    from gokalman_tpu_torch.ops import assoc_scan, ensemble
+
+    f64 = torch.float64
+    model, st = main_model(gt, torch, device, f64)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    _, ys = smoother_truth(model, st, streams, steps, f64, gen)
+    means, covs = assoc_scan.filter_parallel(model, st, ys)
+    sm, sc = assoc_scan.smooth_parallel(model, means, covs)
+    bank, _, _ = ensemble.filter_bank(model, st, ys.permute(1, 2, 0))
+    errs = [_assert_close("filtered means vs filter_bank", means, bank.permute(2, 0, 1),
+                          1e-8, 1e-10)]
+    phis = model.f.expand(steps, 6, 6)
+    for s in range(checked):
+        xr, pr = smoothing.rts_smoother(phis, model.noise.q, means[s], covs[s])
+        errs += [_assert_close(f"stream {s} smoothed means vs RTS", sm[s], xr, 1e-7, 1e-9),
+                 _assert_close(f"stream {s} smoothed covs vs RTS", sc[s], pr, 1e-6, 1e-9)]
+    log(f"[smoother parity] {streams}x{steps} f64: filtered means vs filter_bank "
+        f"max|diff| {errs[0]:.3g} (rtol 1e-8, atol 1e-10); smoothed moments of "
+        f"{checked} streams vs rts_smoother max|diff| {max(errs[1:]):.3g} "
+        f"(means rtol 1e-7 / atol 1e-9, covariances rtol 1e-6 / atol 1e-9)")
+
+
+def time_sharded_rank(ys, reps):
+    """One rank of the time-sharded run, in its own process or the
+    parent: the f64 cv6 model on the card, sharded_filter_smoother over
+    the group on the whole sequence `ys` [T, 3]; its block of the four
+    results (on the CPU) and the CUDA-event ms per call."""
+    import torch
+
+    import gokalman_tpu_torch as gt
+    from gokalman_tpu_torch.parallel import time_scan
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    model, st = main_model(gt, torch, device, torch.float64)
+    ys = ys.to(device)
+    call = lambda: time_scan.sharded_filter_smoother(model, st, ys)
+    ms, out = cuda_ms(call, reps, call)
+    return {"result": [a.cpu() for a in out], "ms": ms}
+
+
+TIME_TOL = 1e-9  # tests/test_time_scan.py:46-53
+
+
+def phase_time_sharded_world1(gt, torch, device):
+    """sharded_filter_smoother on one f64 sequence of TIME_STEPS steps in
+    an NCCL group of one rank, held to the single-device filter_parallel
+    + smooth_parallel at atol 1e-9.  Returns the measurements and the
+    world-1 result."""
+    import torch.distributed as dist
+
+    from gokalman_tpu_torch.ops import assoc_scan
+
+    model, st = main_model(gt, torch, device, torch.float64)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    _, ys = smoother_truth(model, st, 1, TIME_STEPS, torch.float64, gen)
+    ys = ys[0]
+    means, covs = assoc_scan.filter_parallel(model, st, ys)
+    ref = [means, covs, *assoc_scan.smooth_parallel(model, means, covs)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            out = time_sharded_rank(ys, 3)
+        finally:
+            dist.destroy_process_group()
+    errs = [float((a - b.cpu()).abs().max()) for a, b in zip(out["result"], ref)]
+    check(max(errs) <= TIME_TOL, f"time-sharded world 1 differs from the single-device "
+          f"scan by {errs}")
+    log(f"[time-sharded, world 1] nccl, {TIME_STEPS} steps f64: vs filter_parallel + "
+        f"smooth_parallel max|diff| means {errs[0]:.3g}, covs {errs[1]:.3g}, smoothed "
+        f"{errs[2]:.3g} / {errs[3]:.3g} (atol {TIME_TOL:g}); {out['ms']:.3f} ms per call "
+        f"(CUDA events)")
+    return ys.cpu(), out["result"]
+
+
+def phase_time_sharded_world2(ys, world1):
+    """Two spawned gloo ranks on the one card, TIME_STEPS / 2 steps each:
+    the concatenated blocks equal world 1 at atol 1e-9."""
+    import torch
+
+    from gokalman_tpu_torch.parallel import _launch
+
+    t0 = time.perf_counter()
+    outs = _launch.spawn(time_sharded_rank, [(ys, 3)] * WORLD2, timeout=600)
+    wall = time.perf_counter() - t0
+    got = [torch.cat([o["result"][i] for o in outs]) for i in range(4)]
+    errs = [float((a - b).abs().max()) for a, b in zip(got, world1)]
+    check(max(errs) <= TIME_TOL, f"time-sharded world 2 differs from world 1 by {errs}")
+    log(f"[time-sharded, world 2] gloo, {TIME_STEPS // WORLD2} steps per rank f64: vs "
+        f"world 1 max|diff| {max(errs):.3g} (atol {TIME_TOL:g}); ms per call per rank "
+        + ", ".join(f"{o['ms']:.3f}" for o in outs)
+        + f" (CUDA events); wall {wall:.1f} s host clock (spawn, runs)")
+
+
+def _assert_close(name, got, want, rtol, atol):
+    """max|got - want|; SmokeFailure unless within torch's rtol/atol."""
+    import torch
+
+    try:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    except AssertionError as exc:
+        raise SmokeFailure(f"{name}: {exc}") from None
+    return float((got - want).abs().max())
+
+
+def phase_filters(gt, torch, device, steps=60):
+    """The reference's other filters and the smoothers on the card in
+    f64, each against what its JAX test holds it to, on a small random
+    system (n = 4, p = 2) of `steps` steps.  Returns {check: max|diff|}."""
+    import numpy as np
+
+    from gokalman_tpu_torch.filters import (batch, hybrid, information, smoothing, sqrt,
+                                            srif, vanilla)
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED)
+    n, p = 4, 2
+    spd = lambda k, s: (lambda a: s * (a @ a.T + k * np.eye(k)))(rng.standard_normal((k, k)))
+    f = np.eye(n) + 0.05 * rng.standard_normal((n, n))
+    g, h = rng.standard_normal((n, 1)), rng.standard_normal((p, n))
+    q, r, x0, p0 = spd(n, 0.01), spd(p, 0.1), rng.standard_normal(n), spd(n, 1.0)
+    ys, us = rng.standard_normal((steps, p)), rng.standard_normal((steps, 1))
+    t = lambda a: torch.as_tensor(a, dtype=f64, device=device)
+    errs = {}
+
+    vm, vs = vanilla.new(x0, p0, f, g, h, gt.noise.noiseless(q, r), dtype=f64)
+    _, vest = vanilla.run(vm, vs, t(ys), t(us))
+    # information and sqrt against vanilla (test_information.py:59-70).
+    im, ist = information.new_from_state(x0, p0, f, g, h, gt.noise.noiseless(q, r), dtype=f64)
+    _, iest = information.run(im, ist, t(ys), t(us))
+    sm_, sst = sqrt.new(x0, p0, f, g, h, gt.noise.awgn(q, r), dtype=f64)
+    _, sest = sqrt.run(sm_, sst, t(ys), t(us))
+    for name, est in (("information", iest), ("sqrt", sest)):
+        errs[name] = max(_assert_close(f"{name} {field}", getattr(est, field),
+                                       getattr(vest, field), 1e-8, 1e-10)
+                         for field in ("state", "covariance", "pred_covariance"))
+    # SRIF on a Q-less system against vanilla (test_srif.py:68-74).
+    pd = np.diag(rng.uniform(1.0, 5.0, n))
+    rd = np.diag(rng.uniform(0.1, 0.5, p))
+    q0 = np.zeros((n, n))
+    vm0, vs0 = vanilla.new(x0, pd, f, None, h, gt.noise.noiseless(q0, rd), dtype=f64)
+    _, v0est = vanilla.run(vm0, vs0, t(ys))
+    rm, rst, _ = srif.new(x0, pd, p, False, gt.noise.noiseless(q0, rd), dtype=f64)
+    phis, hts = t(np.repeat(f[None], steps, 0)), t(np.repeat(h[None], steps, 0))
+    _, rest = srif.run(rm, rst, phis, hts, t(ys), t(np.zeros((steps, p))),
+                       torch.ones(steps, dtype=torch.bool, device=device))
+    errs["srif"] = max(_assert_close("srif state", rest.state, v0est.state, 1e-7, 1e-9),
+                       _assert_close("srif covariance", rest.covariance, v0est.covariance,
+                                     1e-6, 1e-9))
+    # SRIF with process noise: smooth_all_q against rts_smoother.
+    gamma = np.vstack([np.zeros((n // 2, n // 2)), np.eye(n // 2)])
+    qg = 0.02 * np.eye(n // 2)
+    qm, qst, _ = srif.new(x0, pd, p, False, gt.noise.noiseless(qg, rd), gamma=gamma,
+                          dtype=f64)
+    has = torch.as_tensor(np.arange(steps) % 7 != 0, device=device)
+    _, qest = srif.run(qm, qst, phis, hts, t(ys), t(np.zeros((steps, p))), has)
+    qsm = srif.smooth_all_q(qm, qest)
+    xr, pr = smoothing.rts_smoother(phis, t(gamma @ qg @ gamma.T), qest.state, qest.covariance)
+    errs["srif smooth_all_q"] = max(
+        _assert_close("smooth_all_q state", qsm.state, xr, 1e-9, 1e-9),
+        _assert_close("smooth_all_q covariance", qsm.covariance, pr, 1e-9, 1e-9))
+    # hybrid smooth_all_rts against rts_smoother (test_smoothing.py:85-119).
+    hm, hst = hybrid.new(np.zeros(n), np.eye(n), gt.noise.noiseless(q, r), p, dtype=f64)
+    _, hest = hybrid.run(hm, hst, phis, hts, t(ys), t(np.zeros((steps, p))),
+                         torch.ones(steps, dtype=torch.bool, device=device),
+                         gammas=t(np.repeat(np.eye(n)[None], steps, 0)),
+                         snc_mask=torch.ones(steps, dtype=torch.bool, device=device))
+    hsm = hybrid.smooth_all_rts(hest)
+    xr, pr = smoothing.rts_smoother(phis, t(q), hest.state, hest.covariance)
+    errs["hybrid smooth_all_rts"] = max(
+        _assert_close("smooth_all_rts state", hsm.state, xr, 1e-8, 1e-10),
+        _assert_close("smooth_all_rts covariance", hsm.covariance, pr, 1e-8, 1e-10))
+    # iekf_update with iters=1 against the EKF update at the same point.
+    ref = t(np.array([3.0, 4.0, 0.1, -0.2]))
+
+    def obs_fn(dev):
+        x = ref + dev
+        rho = torch.sqrt(x[0] ** 2 + x[1] ** 2)
+        zero = x[0] * 0
+        hj = torch.stack([torch.stack([x[0] / rho, x[1] / rho, zero, zero]),
+                          torch.stack([-x[1] / rho**2, x[0] / rho**2, zero, zero])])
+        return torch.stack([rho, torch.atan2(x[1], x[0])]), hj
+
+    real = t(np.array([5.3, 0.95]))
+    km, kst = hybrid.new(0.1 * rng.standard_normal(n), np.diag([0.5, 0.5, 0.1, 0.1]),
+                         gt.noise.noiseless(q, np.diag([0.01, 1e-4])), p, dtype=f64)
+    _, ie = hybrid.iekf_update(km, kst, t(f), obs_fn, real, iters=1)
+    comp, hj = obs_fn(t(f) @ kst.x)
+    _, ue = hybrid.update(km, kst._replace(x=torch.zeros_like(kst.x)), t(f), hj, real, comp,
+                          ekf=True)
+    errs["hybrid iekf_update iters=1"] = max(
+        _assert_close("iekf state", ie.state, t(f) @ kst.x + ue.state, 1e-9, 1e-9),
+        _assert_close("iekf covariance", ie.covariance, ue.covariance, 1e-9, 1e-9))
+    # The smoothers on the vanilla trace, against RTS.
+    xr, pr = smoothing.rts_smoother(phis, t(q), vest.state, vest.covariance,
+                                    offsets=t(us @ g.T))
+    x2, p2 = smoothing.two_filter_smoother(phis, t(q), t(h), t(r), t(ys), vest.state,
+                                           vest.covariance, offsets=t(us @ g.T))
+    errs["two_filter_smoother"] = max(_assert_close("two-filter state", x2, xr, 1e-7, 1e-9),
+                                      _assert_close("two-filter covariance", p2, pr, 1e-6,
+                                                    1e-9))
+    k0 = steps // 3
+    xp, pp = smoothing.fixed_point_smoother(t(f), t(h), t(r), vest.state, vest.covariance,
+                                            vest.innovation, vest.pred_covariance, k0)
+    errs["fixed_point_smoother"] = max(
+        _assert_close("fixed-point state", xp[-1], xr[k0], 1e-9, 1e-12),
+        _assert_close("fixed-point covariance", pp[-1], pr[k0], 1e-8, 1e-12))
+    xr0, pr0 = smoothing.rts_smoother(phis, t(q), vest.state, vest.covariance)
+    xl, pl = smoothing.fixed_lag_smoother(phis, t(q), vest.state, vest.covariance, steps)
+    errs["fixed_lag_smoother"] = max(_assert_close("fixed-lag state", xl, xr0, 0, 1e-10),
+                                     _assert_close("fixed-lag covariance", pl, pr0, 0, 1e-10))
+    # batch.solve against a numpy least-squares solve.
+    hb = rng.standard_normal((steps, p, n))
+    xb = rng.standard_normal(n)
+    yb = hb @ xb + 1e-3 * rng.standard_normal((steps, p))
+    w = np.linalg.inv(r)
+    sol = batch.solve(hb, w, yb, np.zeros_like(yb), dtype=f64)
+    lw = np.linalg.cholesky(w)
+    a_ls = np.concatenate([lw.T @ hk for hk in hb])
+    b_ls = np.concatenate([lw.T @ y for y in yb])
+    errs["batch.solve"] = _assert_close(
+        "batch.solve", sol.x0, t(np.linalg.lstsq(a_ls, b_ls, rcond=None)[0]), 1e-9, 1e-9)
+    check(all(a.device == device for a in (iest.info_state, sest.state, rest.r, hest.state,
+                                           sol.x0)), "a filter ran off the card")
+    log(f"[filters] f64, n = {n}, p = {p}, {steps} steps, on the card: max|diff| "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+    return errs
+
+
 def kernel_entry(name, key, counts, max_err, times, bound_ms, bound_by):
     ms, plain_ms, library_ms = times[key]
     return {"name": name, "route": "cuda",
@@ -713,12 +1117,17 @@ def run():
     max_err["fused_mc"] = max(max_err["fused_mc"], full_err)
     phase_device_times(mod, device)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0 and smi.stdout.strip(), "nvidia-smi failed")
-    for line in smi.stdout.strip().splitlines():
-        log(line.strip())
+    # The smoother legs, the time-sharded scan and the other filters:
+    # plain PyTorch, no kernel of their own (the JAX package has no
+    # Pallas code on these paths).
+    card = card_name_and_limit()
+    phase_smoother(gt, torch, device, card)
+    phase_smoother_parity(gt, torch, device)
+    ys, world1 = phase_time_sharded_world1(gt, torch, device)
+    phase_time_sharded_world2(ys, world1)
+    phase_filters(gt, torch, device)
+
+    log(card)
 
     # K1: the larger of its bytes and FP32-operations bounds (the
     # generator's integer multiplies, on the same pipe, are in the

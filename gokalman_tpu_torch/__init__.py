@@ -13,13 +13,17 @@ its plain PyTorch version on the CPU) -> `ops.ensemble.ChiSquareResult`;
 its sharded form over a torch.distributed group
 (`parallel.mesh.sharded_mc_chi_square_fused`); and the reference's
 Monte-Carlo / chi-square harness (`montecarlo`, `chisquare`, `truth`,
-`types`).
+`types`).  Beside it, in plain PyTorch: the reference's other filters
+(`filters.information`, `sqrt`, `srif`, `hybrid`, `batch`), the
+smoothers (`filters.smoothing`), the parallel-in-time filter and RTS
+smoother (`ops.assoc_scan`) and its time-sharded form
+(`parallel.time_scan`).
 
 Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
 """
 
-from . import (c2d, chisquare, convert, linalg, montecarlo, noise, ops,
+from . import (c2d, chisquare, convert, filters, linalg, montecarlo, noise, ops,
                parallel, truth, types, workloads)
 from .filters import vanilla
 
@@ -29,6 +33,7 @@ __all__ = [
     "c2d",
     "chisquare",
     "convert",
+    "filters",
     "linalg",
     "montecarlo",
     "noise",

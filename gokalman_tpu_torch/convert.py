@@ -11,6 +11,8 @@ the card:
 - `runs_from_numpy`: a `montecarlo.MonteCarloRuns` (its estimate
   fields [S, T, ...], runs, steps), so that both packages can be fed
   one set of runs (e.g. `chisquare.chi_square`).
+- `record_from_numpy`: any model, state or estimate of the information,
+  square-root, SRIF and hybrid filters, from its fields in order.
 """
 
 from __future__ import annotations
@@ -57,6 +59,31 @@ def estimate_from_numpy(state, measurement, innovation, covariance,
     field order (`*map(np.asarray, est)`)."""
     return Estimate(*_tensors((state, measurement, innovation, covariance,
                                pred_covariance, gain), dtype, device))
+
+
+def record_from_numpy(cls, fields: Sequence, *, dtype=torch.float64, device=None):
+    """Port-side record `cls` from a JAX record's fields in field order.
+
+    `cls` is a port `Model`, `State` or `Estimate` NamedTuple, e.g. of
+    `filters.information`, `sqrt`, `srif` or `hybrid`, and `fields`
+    are the JAX record's fields: floating arrays become `dtype` tensors,
+    integer and bool arrays (the step counter `k`) keep their integer or
+    bool type, a nested sequence (a `Noise`) becomes a `Noise` of
+    tensors, and None and Python scalars (`meas_size`, `non_tri_r`) stay
+    as they are.
+    """
+    device = resolve_device(device)
+
+    def conv(a):
+        if a is None or isinstance(a, (bool, int, float)):
+            return a
+        if isinstance(a, (tuple, list)):
+            return Noise(*(conv(b) for b in a))
+        a = np.array(a)
+        return torch.as_tensor(a, dtype=dtype if a.dtype.kind in "fc" else None,
+                               device=device)
+
+    return cls(*(conv(a) for a in fields))
 
 
 def runs_from_numpy(estimate: Sequence, runs: int, steps: int, *,

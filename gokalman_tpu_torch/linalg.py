@@ -1,8 +1,11 @@
 """Small-matrix linear algebra on torch tensors.
 
-Port of the main-path subset of gokalman_tpu/linalg.py.  Functions
-take and return tensors and keep the JAX versions' names and
-semantics; batched inputs broadcast over leading axes.
+Port of the part of gokalman_tpu/linalg.py that the port's filters
+use.  Functions take and return tensors and keep the JAX versions'
+names and semantics (a failed factorization gives NaN, not an
+exception); batched inputs broadcast over leading axes.  Apart from
+the host-side `is_nil`, nothing here reads a device value back to the
+host on the card.
 """
 
 from __future__ import annotations
@@ -40,9 +43,34 @@ class _HighPrecision(contextlib.ContextDecorator):
 highp = _HighPrecision()
 
 
+@highp
+def factor_product(s: torch.Tensor) -> torch.Tensor:
+    """S Sᵀ at full float32 precision: the covariance of a
+    factor-carrying estimate (sqrt, SRIF), which must not lose TF32's
+    digits either."""
+    return s @ s.transpose(-1, -2)
+
+
+def identity(n: int, dtype=None, device=None) -> torch.Tensor:
+    """Identity matrix (reference: helper.go:44)."""
+    return torch.eye(n, dtype=dtype, device=device)
+
+
+def scaled_identity(n: int, s, dtype=None, device=None) -> torch.Tensor:
+    """s · I_n (reference: helper.go:13)."""
+    return torch.eye(n, dtype=dtype, device=device) * s
+
+
 def is_nil(m) -> bool:
     """Whether a matrix is None or all-zero (reference: helper.go:49-62)."""
     return m is None or not bool(torch.as_tensor(m).any())
+
+
+def matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M v for batches of matrices [..., n, k] and vectors [..., k],
+    broadcast over the leading dims (`@` would take a batch of vectors
+    for a matrix)."""
+    return (m @ v.unsqueeze(-1)).squeeze(-1)
 
 
 def sym(a: torch.Tensor) -> torch.Tensor:
@@ -64,6 +92,80 @@ def check_dims(shape1, shape2, name1: str, name2: str, method: str) -> None:
     }[method]
     if not ok:
         raise ValueError(msg)
+
+
+def sign_db(v: torch.Tensor, deadband: float = 1e-12) -> torch.Tensor:
+    """Sign with a deadband mapping |v| <= 1e-12 to +1 (reference:
+    helper.go:133-138)."""
+    return torch.where(torch.abs(v) <= deadband, torch.ones_like(v), torch.sign(v))
+
+
+def householder_triangularize(a: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """Householder triangularization of the top-left n columns of A
+    ([..., n+m, c], c >= n+1), batched over leading dims (reference:
+    helper.go:142-172).
+
+    Each of the n reflections is one masked rank-1 update of the whole
+    block, as in the JAX package, with its sign convention:
+    σ = sign_db(A_kk)·‖A_k:,k‖ and the diagonal set to −σ.  The
+    eliminated column is written explicitly as [−σ; 0...], so no
+    rank-1-update residue survives below the diagonal.
+    """
+    rows = n + m
+    if a.shape[-2] != rows:
+        raise ValueError(f"A must have n+m={rows} rows, got {tuple(a.shape)}")
+    row_idx = torch.arange(rows, device=a.device)
+    col_idx = torch.arange(a.shape[-1], device=a.device)
+    for k in range(n):
+        col = a[..., :, k]
+        mask = row_idx >= k
+        akk = a[..., k, k]
+        sigma = (torch.sqrt(torch.sum(torch.where(mask, col * col, 0.0), dim=-1))
+                 * sign_db(akk))
+        # Householder vector: u_k = A_kk + σ, u_i = A_ik for i > k.
+        u = torch.where(row_idx == k, (akk + sigma)[..., None],
+                        torch.where(mask, col, 0.0))
+        denom = sigma * (akk + sigma)
+        beta = torch.where(denom == 0.0, 0.0, 1.0 / denom)
+        gammas = beta[..., None] * (u[..., None, :] @ a)[..., 0, :]
+        a = a - u[..., :, None] * gammas[..., None, :]
+        newcol = torch.where(row_idx == k, -sigma[..., None],
+                             torch.where(mask, 0.0, a[..., :, k]))
+        a = torch.where(col_idx == k, newcol[..., :, None], a)
+    return a
+
+
+def solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """General solve A x = b by partial-pivot LU, the counterpart of
+    `jnp.linalg.solve`; b is a vector ([..., n]) or a matrix
+    ([..., n, k]).  `solve_ex` neither raises on a singular A (the
+    result is inf / NaN, as in JAX) nor, on the card, reads its `info`
+    back to the host."""
+    vector = b.dim() == a.dim() - 1
+    x = torch.linalg.solve_ex(a, b.unsqueeze(-1) if vector else b)[0]
+    return x.squeeze(-1) if vector else x
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """A⁻¹ by partial-pivot LU (`inv_ex`), the counterpart of
+    `jnp.linalg.inv`: inf / NaN where A is singular, no host sync."""
+    return torch.linalg.inv_ex(a)[0]
+
+
+def solve_qr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """General solve A x = b via QR (the JAX package's solve on its
+    device path, where XLA:TPU has no float64 LU); b is a vector
+    ([..., n]) or a matrix ([..., n, k])."""
+    q, r = torch.linalg.qr(a)
+    vector = b.dim() == a.dim() - 1
+    y = q.transpose(-1, -2) @ (b.unsqueeze(-1) if vector else b)
+    x = torch.linalg.solve_triangular(r, y, upper=True)
+    return x.squeeze(-1) if vector else x
+
+
+def inv_qr(a: torch.Tensor) -> torch.Tensor:
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    return solve_qr(a, eye.expand(a.shape))
 
 
 def qr_r(a: torch.Tensor) -> torch.Tensor:
@@ -93,8 +195,12 @@ def chol_or_eigh_sqrt(a: torch.Tensor) -> torch.Tensor:
 
 
 def chol_lower(a: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor, L Lᵀ = A."""
-    return torch.linalg.cholesky(a)
+    """Lower Cholesky factor, L Lᵀ = A; NaN where A is not positive
+    definite, as JAX returns.  From `cholesky_ex`, whose `info` is tested
+    on the device: `torch.linalg.cholesky` raises instead, and on the
+    card waits for the device to check."""
+    l, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], l, torch.nan)
 
 
 def _solve_tri(t: torch.Tensor, b: torch.Tensor, upper: bool) -> torch.Tensor:
@@ -114,18 +220,19 @@ def solve_tri_upper(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def inv_tri_upper(u: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
-    return solve_tri_upper(u, eye)
+    return solve_tri_upper(u, eye.expand(u.shape))
 
 
 def solve_psd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b for symmetric positive-definite A via Cholesky."""
-    l = torch.linalg.cholesky(a)
+    """Solve A x = b for symmetric positive-definite A via Cholesky
+    (chol_lower: NaN where A is not positive definite, no host sync)."""
+    l = chol_lower(a)
     return solve_tri_upper(l.transpose(-1, -2), solve_tri_lower(l, b))
 
 
 def inv_psd(a: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
-    return solve_psd(a, eye)
+    return solve_psd(a, eye.expand(a.shape))
 
 
 def quadratic_form(v: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

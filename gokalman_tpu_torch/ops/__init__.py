@@ -3,9 +3,10 @@
 `ensemble` holds the plain PyTorch pipelines (the oracle), `fused_mc`
 the hand-written kernels' wrappers and plain versions, `philox` the
 kernels' random-number device functions in torch, `scan` the log-depth
-associative scan.  `_build` compiles `csrc/*.cu` at first use only.
+associative scan, `assoc_scan` the parallel-in-time filter and RTS
+smoother built on it.  `_build` compiles `csrc/*.cu` at first use only.
 """
 
-from . import ensemble, fused_mc, philox, scan
+from . import assoc_scan, ensemble, fused_mc, philox, scan
 
-__all__ = ["ensemble", "fused_mc", "philox", "scan"]
+__all__ = ["assoc_scan", "ensemble", "fused_mc", "philox", "scan"]

@@ -23,23 +23,41 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
 
 
 def associative_scan(fn: Callable[[Elems, Elems], Elems],
-                     elems: Sequence[torch.Tensor]) -> Elems:
+                     elems: Sequence[torch.Tensor],
+                     reverse: bool = False) -> Elems:
     """Inclusive scan of `fn` over a tuple of [T, ...] tensors.
 
     `fn(a, b)` combines an earlier element `a` with a later one `b`
     (both tuples of [k, ...] tensors) and must be associative.
-    Returns a tuple whose entry t is a_0 ∘ a_1 ∘ ... ∘ a_t.
+    Returns a tuple whose entry t is a_0 ∘ a_1 ∘ ... ∘ a_t.  A
+    NamedTuple of tensors is passed to `fn` and returned as its own
+    type.
+
+    `reverse=True` is JAX's reverse scan: the inputs are flipped along
+    the scan axis, the same forward recursion runs on them, and the
+    outputs are flipped back.  So in `fn(a, b)` the element `a` is the
+    earlier one in the flipped order, i.e. the LATER one in time, and
+    entry t of the result is a_{T-1} ∘ a_{T-2} ∘ ... ∘ a_t.
     """
-    elems = tuple(elems)
+    make = getattr(elems, "_make", tuple)
+    elems = make(elems)
+    if reverse:
+        elems = make(torch.flip(e, (0,)) for e in elems)
+    out = _scan(fn, elems, make)
+    if reverse:
+        out = make(torch.flip(e, (0,)) for e in out)
+    return out
+
+
+def _scan(fn, elems, make):
     t = elems[0].shape[0]
     if t < 2:
         return elems
-    reduced = fn(tuple(e[0:-1:2] for e in elems),
-                 tuple(e[1::2] for e in elems))
-    odd = associative_scan(fn, reduced)
+    reduced = fn(make(e[0:-1:2] for e in elems), make(e[1::2] for e in elems))
+    odd = _scan(fn, make(reduced), make)
     if t % 2 == 0:
-        even = fn(tuple(o[:-1] for o in odd), tuple(e[2::2] for e in elems))
+        even = fn(make(o[:-1] for o in odd), make(e[2::2] for e in elems))
     else:
-        even = fn(odd, tuple(e[2::2] for e in elems))
-    even = tuple(torch.cat([e[:1], r], dim=0) for e, r in zip(elems, even))
-    return tuple(_interleave(e, o) for e, o in zip(even, odd))
+        even = fn(odd, make(e[2::2] for e in elems))
+    even = (torch.cat([e[:1], r], dim=0) for e, r in zip(elems, even))
+    return make(_interleave(e, o) for e, o in zip(even, odd))

@@ -1,6 +1,7 @@
-"""Multi-rank ensembles: `mesh` shards the Monte-Carlo run axis over a
-torch.distributed group and pools the statistics."""
+"""Multi-rank runs over a torch.distributed group: `mesh` shards the
+Monte-Carlo run axis and pools the statistics, `time_scan` shards the
+time axis of the parallel-in-time filter and smoother."""
 
-from . import mesh
+from . import mesh, time_scan
 
-__all__ = ["mesh"]
+__all__ = ["mesh", "time_scan"]
