@@ -27,9 +27,14 @@ launches per call and the kernels with the most device time) and their
 float64 parity against `filter_bank` and `rts_smoother`; the
 time-sharded filter/smoother on one 65,536-step f64 sequence in an NCCL
 group of one rank (held to the single-device scan) and on two gloo
-ranks on the one card (held to world 1); and the information,
+ranks on the one card (held to world 1); the information,
 square-root, SRIF, hybrid and batch filters and the smoothers in f64,
-each against its reference.  Every phase raises on failure; there is
+each against its reference; and bench_od.py's orbit-determination
+scenario at full size (the 8,640-step truth on the card, the 5,120-step
+arc) through the port's OD runners, eight of bench_od.py's rows each
+inside its accuracy gate with its OD steps per second, the CUDA-graph
+replay held to the eager loop, no host sync per step, and kernels,
+operations and device busy share per step.  Every phase raises on failure; there is
 no CPU or plain-version fallback.  The last line of standard output is
 one JSON object with the device; the line before it lists each kernel's
 launches on the counted paths, its error against the plain version, its
@@ -38,6 +43,7 @@ result.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -63,6 +69,18 @@ WORLD2 = 2  # ranks of the two-process checks on the one card
 # serving batch and the long-T single-sequence regime.
 SMOOTHER_SHAPES = ((256, 1_024), (16, 65_536))
 TIME_STEPS = 65_536  # one sequence of the time-sharded scan
+# bench_od.py's OD scenario (bench_od.py:39-76): ground stations
+# (latitude, longitude in degrees), step, truth length, and the arc from
+# the first measurement to the end as the JAX package's run has it
+# (BENCH_OD_r05.json "steps").
+OD_STATIONS = ((-35.398333, 148.981944), (40.427222, -4.250556), (35.247164, -116.795))
+OD_DT, OD_TRUTH_STEPS, OD_ARC_STEPS = 10.0, 8_640, 5_120
+OD_SATELLITES = 64  # the constellation row (bench_od.py:203)
+OD_PARITY_STEPS = 500  # graph replay vs the eager loop
+OD_SYNC_STEPS = (5, 55)  # eager calls whose difference is 50 steps
+OD_COUNT_STEPS = (2, 6)  # eager calls whose difference gives kernels per step
+OD_PROFILED_STEPS = (10, 30)  # profiled graph runs whose difference is per step
+OD_WARMUP_STEPS = 50  # the untimed call before the timed ones
 REPLACES = {
     "fused_mc": "gokalman_tpu/ops/pallas_mc.py:596",
     "sample_normals": "gokalman_tpu/ops/pallas_mc.py:164",
@@ -74,6 +92,7 @@ K1_SPECS = ((6, 3, False, False), (4, 2, True, True), (16, 8, True, True))
 # Published H100 SXM peaks (NVIDIA's data sheet, at 700 W): FP32 outside
 # the tensor cores, and HBM bandwidth.
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+PEAK_FP64 = 34e12  # FP64 outside the tensor cores, same data sheet
 # A 32x32->64-bit multiply is two IMADs (lo, hi) at half the FMA rate:
 # four FMA issue slots, i.e. 8 FP32 operations' worth of the pipe.
 FLOPS_PER_WIDE_MUL = 8
@@ -779,14 +798,16 @@ def launch_profile(fn):
             [f"{name[:60]}: {ms:.3f} ms ({count})" for name, (ms, count) in top])
 
 
-def synchronizing_calls(fn):
+def synchronizing_calls(fn, warm=True):
     """Messages of the calls in one `fn()` that made the host wait for
-    the card, as torch.cuda's sync debug mode reports them."""
+    the card, as torch.cuda's sync debug mode reports them; after one
+    untimed `fn()` unless `warm` is False."""
     import warnings
 
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -1094,6 +1115,336 @@ def phase_filters(gt, torch, device, steps=60):
     return errs
 
 
+def od_scenario(gt, torch, device):
+    """bench_od.py:39-76 through the port on the card, from host numbers
+    with no `device=`: the LEO orbit oe_to_rv(7,000 km, e 0.001, i 30°,
+    Ω 80°, ω 40°, ν 0), three stations, dt = 10 s, the 8,640-step J2
+    truth (one CUDA graph replayed per step), its station measurements,
+    and the OD arc from the first measurement to the end."""
+    from gokalman_tpu_torch.dynamics import elements, propagate, stations
+
+    r, v = elements.oe_to_rv(7000.0, 0.001, math.radians(30.0), math.radians(80.0),
+                             math.radians(40.0), 0.0)
+    x0_truth = torch.cat([r, v])
+    sts = [stations.new_station(lat, lon, 0.0, 10.0) for lat, lon in OD_STATIONS]
+    check(x0_truth.device == device and sts[0].latitude.device == device,
+          f"dynamics entry points put the scenario on {x0_truth.device}, not {device}")
+    traj = propagate.propagate(x0_truth, OD_DT, OD_TRUTH_STEPS, degree=2, with_stm=False)
+    ms = propagate.generate_measurements(sts, traj)
+    first = int(torch.argmax(ms.has_meas.to(torch.int32)))
+    sl = slice(first, OD_TRUTH_STEPS)
+    x0_ref = traj.states[first - 1]
+    return dict(
+        sts=sts, ms=propagate.MeasurementSet(*(a[sl] for a in ms)), x0_truth=x0_truth,
+        x0_ref=x0_ref,
+        x0_small=x0_ref + torch.tensor([1e-3, -1e-3, 1e-3, 1e-6, -1e-6, 1e-6], device=device,
+                                       dtype=torch.float64),
+        x0_pert=x0_ref + torch.tensor([0.5, -0.3, 0.2, 1e-4, -5e-5, 8e-5], device=device,
+                                      dtype=torch.float64),
+        t0=float(traj.times[first - 1]), truth=traj.states[sl],
+        p0=torch.diag(torch.tensor([50.0, 50.0, 50.0, 1.0, 1.0, 1.0], device=device,
+                                   dtype=torch.float64)),
+        r=torch.diag(torch.tensor([1e-6, 1e-6], device=device, dtype=torch.float64)))
+
+
+def od_gate_rms(res, truth, has, tail=False):
+    """bench_od.py:79-93: position / velocity RMS at the measurement
+    steps (the second half with `tail`), against the co-propagated truth
+    where the run has one."""
+    import numpy as np
+
+    if res.truth is not None:
+        truth = res.truth
+    n = res.est_states.shape[0]
+    err = res.est_states[..., :6].cpu().numpy() - truth[:n, :6].cpu().numpy()
+    sel = has[:n].cpu().numpy().copy()
+    if tail:
+        sel[: err.shape[0] // 2] = False
+    pos = float(np.sqrt((err[sel, :3] ** 2).sum(1).mean()))
+    vel = float(np.sqrt((err[sel, 3:6] ** 2).sum(1).mean()))
+    return pos, vel
+
+
+def od_time(torch, fn, steps):
+    """bench_od.py:96-120: the best of three host-clock times of `fn(steps)`,
+    each ended by reading the last estimate back, after one untimed
+    call (a short one: there is no compilation to amortize, the graph
+    is captured in every call).  Returns (best seconds, last result)."""
+    fn(min(OD_WARMUP_STEPS, steps))
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = fn(steps)
+        _ = float(res.est_states.reshape(-1)[-1])
+        best = min(best, time.perf_counter() - t0)
+    return best, res
+
+
+def od_rows(gt, torch, device, s):
+    """The eight bench_od.py rows the port runs, as {name: (runner
+    closure over `steps` and `graph`, truth, tail, pos gate, vel gate,
+    dtype, satellites)}: the first `steps` of the arc, `graph` as in
+    ops.scan.scan."""
+    from gokalman_tpu_torch import od
+    from gokalman_tpu_torch.dynamics import propagate, stations
+
+    f32 = torch.float32
+    noise = gt.noise.noiseless(torch.zeros(3, 3, dtype=torch.float64, device=device), s["r"])
+    noise32 = gt.noise.noiseless(torch.zeros(3, 3, dtype=f32, device=device), s["r"].to(f32))
+    sts, ms = s["sts"], s["ms"]
+    sts32 = [stations.Station(*(f.to(f32) for f in st)) for st in sts]
+    ms32 = ms._replace(obs=ms.obs.to(f32), htildes=ms.htildes.to(f32))
+    cut = lambda m, n: propagate.MeasurementSet(*(a[:n] for a in m))
+    ekf_mask = torch.cumsum(ms.has_meas.to(torch.int32), 0) > 30
+    common = dict(degree=2, t0=s["t0"])
+    # The J3 truth of the DMC and SNC rows (bench_od.py:239-251).
+    traj3 = propagate.propagate(s["x0_truth"], OD_DT, OD_TRUTH_STEPS, degree=3,
+                                with_stm=False)
+    ms3 = propagate.generate_measurements(sts, traj3)
+    f3 = max(int(torch.argmax(ms3.has_meas.to(torch.int32))), 1)
+    sl3 = slice(f3, min(f3 + ms.obs.shape[0], OD_TRUTH_STEPS))
+    ms3c = propagate.MeasurementSet(*(a[sl3] for a in ms3))
+    ms3c32 = ms3c._replace(obs=ms3c.obs.to(f32), htildes=ms3c.htildes.to(f32))
+    x0_3, t0_3 = traj3.states[f3 - 1], float(traj3.times[f3 - 1])
+    ekf3 = torch.cumsum(ms3c.has_meas.to(torch.int32), 0) > 30
+    perts = (1e-2 * torch.arange(1, OD_SATELLITES + 1, dtype=f32, device=device)[:, None]
+             * torch.tensor([1.0, -1.0, 1.0, 0.0, 0.0, 0.0], dtype=f32, device=device))
+    x0s = s["x0_ref"].to(f32)[None, :] + perts
+    bias_true = torch.tensor([1e-2, -1.5e-2, 5e-3], dtype=torch.float64, device=device)
+    bias_sigmas = torch.full((3,), 2e-2, dtype=torch.float64, device=device)
+    return {
+        "srif": (lambda n, graph=True: od.run_srif_od(
+            s["x0_small"], s["p0"], noise, cut(ms, n), OD_DT, stations_list=sts,
+            truth0=s["x0_ref"], graph=graph, **common), s["truth"], False, 1e-3, 1e-6,
+            "float64", None),
+        "hybrid_ckf": (lambda n, graph=True: od.run_hybrid_od(
+            s["x0_small"], s["p0"], noise, cut(ms, n), OD_DT, stations_list=sts,
+            truth0=s["x0_ref"], graph=graph, **common), s["truth"], False, 1e-3, 1e-6,
+            "float64", None),
+        "hybrid_ekf_perturbed": (lambda n, graph=True: od.run_hybrid_od(
+            s["x0_pert"], s["p0"], noise, cut(ms, n), OD_DT, stations_list=sts,
+            ekf_mask=ekf_mask[:n], truth0=s["x0_ref"], graph=graph, **common),
+            s["truth"], True, 1e-3, 1e-6, "float64", None),
+        "srif_f32": (lambda n, graph=True: od.run_srif_od(
+            s["x0_small"].to(f32), s["p0"].to(f32), noise32, cut(ms32, n), OD_DT,
+            stations_list=sts32, truth0=s["x0_ref"].to(f32),
+            snc_q=(1e-7) ** 2 * torch.eye(3, dtype=f32, device=device), graph=graph,
+            **common), s["truth"], True, 2e-2, 5e-5, "float32", None),
+        "srif_f32_constellation": (lambda n, graph=True: od.run_srif_od(
+            x0s, s["p0"].to(f32), noise32, cut(ms32, n), OD_DT, stations_list=sts32,
+            graph=graph, **common), None, False, None, None, "float32", OD_SATELLITES),
+        "hybrid_dmc_j3truth": (lambda n, graph=True: od.run_hybrid_od(
+            x0_3, s["p0"], noise, cut(ms3c, n), OD_DT, stations_list=sts, degree=2,
+            t0=t0_3, ekf_mask=ekf3[:n], dmc_tau=3000.0, dmc_sigma=1e-9, dmc_w_p0=1e-13,
+            graph=graph), traj3.states[sl3], True, 2e-1, 2e-4, "float64", None),
+        "srif_f32_snc_j3truth": (lambda n, graph=True: od.run_srif_od(
+            x0_3.to(f32), s["p0"].to(f32), noise32, cut(ms3c32, n), OD_DT,
+            stations_list=sts32, degree=2, t0=t0_3,
+            snc_q=(2e-6) ** 2 * torch.eye(3, dtype=f32, device=device), graph=graph),
+            traj3.states[sl3], True, 1.5e-1, 1.5e-4, "float32", None),
+        "consider_od_biased": (lambda n, graph=True: od.run_consider_od(
+            s["x0_small"], s["p0"], noise, cut(ms, n), OD_DT, bias_sigmas=bias_sigmas,
+            stations_list=sts, truth0=s["x0_ref"], true_biases=bias_true, graph=graph,
+            **common), s["truth"], True, 1e-1, 1e-4, "float64", None),
+    }
+
+
+_MATMULS = {"mm": lambda a, b: 2 * a.shape[0] * a.shape[1] * b.shape[1],
+            "bmm": lambda a, b: 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2],
+            "mv": lambda a, b: 2 * a.numel(), "dot": lambda a, b: 2 * a.numel()}
+_NO_MATH = ("where", "copy", "clone", "fill", "to_copy", "lift", "zero", "detach", "alias")
+
+
+def op_work(fn):
+    """Floating-point operations of one `fn()` call, counted from the
+    aten ops it dispatches (below torch.func's transforms): 2mnk per
+    matrix product; one per output element of pointwise math
+    (transcendentals included); one per input element of a reduction;
+    per matrix of order n with k right-hand sides, n³/3 for a Cholesky,
+    n²k for a triangular solve, 8n³/3 for a QR with Q formed, 2n³ for an
+    inverse, 2n³/3 + 2n²k for an LU solve; 9 per cross product; data
+    movement (copies, selects, cat, index) counts 0."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def batch_n(t):
+        return t.numel() // (t.shape[-1] * t.shape[-2]), t.shape[-1]
+
+    def count(func, args, out):
+        name = func.overloadpacket.__name__
+        if name in _MATMULS:
+            return _MATMULS[name](args[0], args[1])
+        if name in ("addmm", "baddbmm", "addmv"):
+            return _MATMULS[{"addmm": "mm", "baddbmm": "bmm", "addmv": "mv"}[name]](
+                args[1], args[2]) + out.numel()
+        if name in ("sum", "mean", "linalg_vector_norm", "amax", "amin", "prod", "any",
+                    "all", "argmax"):
+            return args[0].numel()
+        if name == "linalg_cross":
+            return 3 * out.numel()
+        if name in ("linalg_cholesky_ex", "linalg_inv_ex", "linalg_qr", "linalg_lu_factor_ex"):
+            b, n = batch_n(args[0])
+            per = {"linalg_cholesky_ex": n**3 / 3, "linalg_inv_ex": 2 * n**3,
+                   "linalg_qr": 8 * n**3 / 3, "linalg_lu_factor_ex": 2 * n**3 / 3}[name]
+            return b * per
+        if name == "linalg_solve_triangular":
+            b, n = batch_n(args[0])
+            return b * n * n * args[1].shape[-1]
+        if name == "_linalg_solve_ex":
+            b, n = batch_n(args[0])
+            k = 1 if args[1].dim() == args[0].dim() - 1 else args[1].shape[-1]
+            return b * (2 * n**3 / 3 + 2 * n * n * k)
+        if (torch.Tag.pointwise in func.tags and isinstance(out, torch.Tensor)
+                and out.is_floating_point() and not any(w in name for w in _NO_MATH)):
+            return out.numel()
+        return 0
+
+    class Counter(TorchDispatchMode):
+        flops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            self.flops += count(func, args, first)
+            return out
+
+    with Counter() as counter:
+        fn()
+    return counter.flops
+
+
+def od_parity(torch, fn, steps):
+    """The graph replay against the eager loop on the card over `steps`:
+    ("bitwise", 0) when every output is equal, else ("1e-12 relative",
+    worst relative difference), which must hold; and the host-clock
+    seconds of each call (synchronized)."""
+    from torch.utils import _pytree as pytree
+
+    secs = []
+    for graph in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(steps, graph)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if graph:
+            replay = out
+    pairs = [(a, b) for a, b in zip(pytree.tree_leaves(replay), pytree.tree_leaves(out))
+             if isinstance(a, torch.Tensor) and a.is_floating_point()]
+    if all(torch.equal(a, b) for a, b in pairs):
+        return "bitwise", 0.0, secs
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                for a, b in pairs)
+    check(worst <= 1e-12, f"graph replay differs from the eager loop by {worst:.3g} relative")
+    return "1e-12 relative", worst, secs
+
+
+def phase_od(gt, torch, device, card):
+    """bench_od.py's rows through the port's OD runners at the bench's
+    full size, each inside its gate; then `[od parity]` (graph replay
+    against the eager loop), the synchronizing calls per eager step of
+    every runner, kernels per step and device busy against wall time.
+    Returns {row: record}."""
+    from torch.utils import _pytree as pytree
+
+    t_phase = time.perf_counter()
+    stages = [("start", t_phase)]
+    s = od_scenario(gt, torch, device)
+    steps = s["ms"].obs.shape[0]
+    log(f"[od] scenario on the card: {OD_TRUTH_STEPS}-step J2 truth and measurements, "
+        f"arc of {steps} steps ({int(s['ms'].has_meas.sum())} measurements), "
+        f"{time.perf_counter() - t_phase:.2f} s host clock")
+    check(steps == OD_ARC_STEPS, f"OD arc of {steps} steps, bench_od.py's has {OD_ARC_STEPS}")
+    rows = od_rows(gt, torch, device, s)
+    out = {}
+    for name, (fn, truth, tail, pos_gate, vel_gate, dtype, sats) in rows.items():
+        best, res = od_time(torch, fn, steps)
+        n = res.est_states.shape[-2]
+        rec = {"metric": f"{name}_od_steps_per_sec", "value": (sats or 1) * n / best,
+               "unit": "od_steps/s", "ms_per_step": best / n * 1e3, "steps": n,
+               "dtype": dtype, "card": card}
+        if sats:
+            finite = bool(torch.isfinite(res.est_states).all())
+            rec.update(satellites=sats, finite=finite, gates_pass=finite)
+        else:
+            pos, vel = od_gate_rms(res, truth, s["ms"].has_meas, tail)
+            rec.update(pos_rms_km=pos, vel_rms_kms=vel, tail=tail, pos_gate_km=pos_gate,
+                       vel_gate_kms=vel_gate, gates_pass=pos < pos_gate and vel < vel_gate)
+        if name == "consider_od_biased":
+            err = (res.est_states[-1] - res.truth[-1]).cpu().double()
+            nees = float(err @ torch.linalg.solve(res.covariances[-1].cpu().double(), err))
+            rec.update(final_nees=nees, gates_pass=rec["gates_pass"] and nees < 30.0)
+        log(f"[od] {json.dumps(rec)}")
+        check(rec["gates_pass"], f"OD row {name} missed its gate: {rec}")
+        out[name] = rec
+
+    stages.append(("rows", time.perf_counter()))
+    for name in ("srif", "hybrid_ckf"):
+        kind, err, (replay_s, eager_s) = od_parity(torch, rows[name][0], OD_PARITY_STEPS)
+        log(f"[od parity] {name}: graph replay vs eager loop over {OD_PARITY_STEPS} steps on "
+            f"the card: {kind} (max relative difference {err:.3g}); host clock "
+            f"{replay_s * 1e3:.1f} ms replayed (capture included) vs {eager_s * 1e3:.1f} ms "
+            f"eager, {eager_s / replay_s:.1f}x")
+    stages.append(("parity", time.perf_counter()))
+    for name, (fn, *_) in rows.items():
+        fn(OD_COUNT_STEPS[0], False)  # first-use work outside the counted calls
+        syncs = {n: synchronizing_calls(lambda: fn(n, False), warm=False)
+                 for n in OD_SYNC_STEPS}
+        short, long_ = (len(syncs[n]) for n in OD_SYNC_STEPS)
+        log(f"[od syncs] {name}: {long_ - short} synchronizing calls in "
+            f"{OD_SYNC_STEPS[1] - OD_SYNC_STEPS[0]} eager steps ({short} in the set-up and "
+            f"first {OD_SYNC_STEPS[0]} steps) {syncs[OD_SYNC_STEPS[1]][:2]}")
+        check(long_ == short, f"{name}: the eager step waits for the card: "
+              f"{syncs[OD_SYNC_STEPS[1]][:3]}")
+    stages.append(("syncs", time.perf_counter()))
+    span = OD_COUNT_STEPS[1] - OD_COUNT_STEPS[0]
+    for name in ("srif", "hybrid_ckf", "srif_f32_constellation"):
+        fn = rows[name][0]
+        profs = [launch_profile(lambda: fn(n, False)) for n in OD_COUNT_STEPS]
+        if None in profs:
+            log(f"[od launches] {name}: not measured (no device activity in the profile)")
+            continue
+        per = (profs[1][0] - profs[0][0]) / span
+        calls = (profs[1][1] - profs[0][1]) / span
+        flops = (op_work(lambda: fn(OD_COUNT_STEPS[1], False))
+                 - op_work(lambda: fn(OD_COUNT_STEPS[0], False))) / span
+        res = fn(OD_COUNT_STEPS[1])
+        out_bytes = sum(a.numel() * a.element_size() for a in pytree.tree_leaves(res)
+                        if isinstance(a, torch.Tensor)) / OD_COUNT_STEPS[1]
+        peak = PEAK_FP32 if out[name]["dtype"] == "float32" else PEAK_FP64
+        bound_ms = max(flops / peak, out_bytes / PEAK_BYTES) * 1e3
+        log(f"[od launches] {name}: {per:.1f} device kernels ({calls:.1f} launch calls) per "
+            f"eager step; graph replay: one graph launch per step; work {flops:.0f} "
+            f"operations and {out_bytes:.0f} output bytes per step (`op_work`): bound "
+            f"{bound_ms * 1e6:.3f} ns per step against {out[name]['ms_per_step'] * 1e6:.0f} "
+            f"ns measured")
+        out[name].update(kernels_per_step=per, flops_per_step=flops, bound_ms=bound_ms)
+    stages.append(("counts", time.perf_counter()))
+    # Device time per replayed step: the difference of two profiled
+    # graph runs cancels the set-up, the eager warm-up step and the
+    # capture; against the row's best host time per step.
+    fn = rows["hybrid_ckf"][0]
+    profs = [launch_profile(lambda: fn(n)) for n in OD_PROFILED_STEPS]
+    if None in profs:
+        log("[od busy] hybrid_ckf: device busy time not measured")
+    else:
+        pspan = OD_PROFILED_STEPS[1] - OD_PROFILED_STEPS[0]
+        busy_ms = (profs[1][2] - profs[0][2]) / pspan
+        row_ms = out["hybrid_ckf"]["ms_per_step"]
+        log(f"[od busy] hybrid_ckf: device busy {busy_ms * 1e3:.1f} us per replayed step in "
+            f"{(profs[1][0] - profs[0][0]) / pspan:.1f} kernels (profiler, "
+            f"{OD_PROFILED_STEPS[1]} - {OD_PROFILED_STEPS[0]} steps) against "
+            f"{row_ms * 1e3:.1f} us per step of the row's best call: busy share "
+            f"{busy_ms / row_ms:.1%}; top kernels of the longer run " + "; ".join(profs[1][3]))
+    stages.append(("busy", time.perf_counter()))
+    log("[od time] " + ", ".join(
+        f"{name} {t - prev:.1f} s" for (name, t), (_, prev) in zip(stages[1:], stages))
+        + " (host clock)")
+    log(f"[od time] phase {time.perf_counter() - t_phase:.1f} s host clock on {card}")
+    return out
+
+
 def kernel_entry(name, key, counts, max_err, times, bound_ms, bound_by):
     ms, plain_ms, library_ms = times[key]
     return {"name": name, "route": "cuda",
@@ -1126,6 +1477,7 @@ def run():
     ys, world1 = phase_time_sharded_world1(gt, torch, device)
     phase_time_sharded_world2(ys, world1)
     phase_filters(gt, torch, device)
+    phase_od(gt, torch, device, card)
 
     log(card)
 

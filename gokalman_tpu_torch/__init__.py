@@ -17,14 +17,17 @@ Monte-Carlo / chi-square harness (`montecarlo`, `chisquare`, `truth`,
 (`filters.information`, `sqrt`, `srif`, `hybrid`, `batch`), the
 smoothers (`filters.smoothing`), the parallel-in-time filter and RTS
 smoother (`ops.assoc_scan`) and its time-sharded form
-(`parallel.time_scan`).
+(`parallel.time_scan`); orbital dynamics (`dynamics`) and orbit
+determination (`od`: the hybrid, consider, SRIF and batch runners, each
+step one CUDA graph replayed per step by `ops.scan.scan`), and the
+tracing and timing helpers (`profiling`).
 
 Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
 """
 
-from . import (c2d, chisquare, convert, filters, linalg, montecarlo, noise, ops,
-               parallel, truth, types, workloads)
+from . import (c2d, chisquare, convert, dynamics, filters, linalg, montecarlo, noise, od,
+               ops, parallel, profiling, truth, types, workloads)
 from .filters import vanilla
 
 __version__ = "0.1.0"
@@ -33,12 +36,15 @@ __all__ = [
     "c2d",
     "chisquare",
     "convert",
+    "dynamics",
     "filters",
     "linalg",
     "montecarlo",
     "noise",
+    "od",
     "ops",
     "parallel",
+    "profiling",
     "truth",
     "types",
     "vanilla",

@@ -13,6 +13,10 @@ the card:
   one set of runs (e.g. `chisquare.chi_square`).
 - `record_from_numpy`: any model, state or estimate of the information,
   square-root, SRIF and hybrid filters, from its fields in order.
+- `stations_from_numpy`, `measurements_from_numpy`,
+  `trajectory_from_numpy`: the dynamics records (`dynamics.stations.
+  Station`, `dynamics.propagate.MeasurementSet` / `Trajectory`), so that
+  both packages can run OD on one scenario.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .dynamics.propagate import MeasurementSet, Trajectory
+from .dynamics.stations import Station
 from .filters.vanilla import Estimate, Model, State
 from .montecarlo import MonteCarloRuns
 from .noise import Noise
@@ -93,3 +99,27 @@ def runs_from_numpy(estimate: Sequence, runs: int, steps: int, *,
     return MonteCarloRuns(
         estimate_from_numpy(*estimate, dtype=dtype, device=device),
         int(runs), int(steps))
+
+
+def stations_from_numpy(stations: Sequence, *, dtype=torch.float64, device=None):
+    """Port-side `Station`s from JAX stations' fields (latitude,
+    longitude, altitude, elevation_mask), one sequence per station."""
+    device = resolve_device(device)
+    return [Station(*(_t(f, dtype, device) for f in fields)) for fields in stations]
+
+
+def measurements_from_numpy(obs, htildes, has_meas, station_idx, *,
+                            dtype=torch.float64, device=None) -> MeasurementSet:
+    """Port-side `MeasurementSet` from a JAX one's fields: obs and htildes
+    become `dtype`, has_meas and station_idx keep their bool and integer
+    types."""
+    device = resolve_device(device)
+    keep = lambda a: torch.as_tensor(np.array(a), device=device)
+    return MeasurementSet(_t(obs, dtype, device), _t(htildes, dtype, device),
+                          keep(has_meas), keep(station_idx))
+
+
+def trajectory_from_numpy(states, stms, times, *, dtype=torch.float64,
+                          device=None) -> Trajectory:
+    """Port-side `Trajectory` from a JAX one's fields."""
+    return Trajectory(*_tensors((states, stms, times), dtype, device))

@@ -10,6 +10,11 @@ carried as (R, b) with x = R⁻¹ b and P = R⁻¹ R⁻ᵀ.
   `linalg.householder_triangularize` (srif.go:298-340);
 - `non_tri_r=True` skips the time-update re-triangularization of
   [R̄ | b̄] (srif.go:121-132);
+- the read-outs x = R⁻¹ b and P = R⁻¹ R⁻ᵀ and the time update's Φ⁻¹
+  and R⁻¹ b solve by LU (`linalg.solve` / `inv`) where the JAX package
+  uses QR (XLA:TPU has no float64 LU): on the card a batch of small QRs
+  is a loop of per-matrix cuSOLVER calls, a batch of LUs one cuBLAS
+  call;
 - `gamma` in `new` enables process noise by the Dyer–McReynolds
   factored time update (the reference refuses process noise,
   srif.go:77-79): with x_{k+1} = Φ x_k + Γ u, u ~ N(0, Q), R_wᵀR_w = Q⁻¹
@@ -62,7 +67,7 @@ class Estimate(NamedTuple):
     @property
     def state(self) -> torch.Tensor:
         """x = R⁻¹ b (srif.go:223-234)."""
-        return linalg.solve_qr(self.r, self.sqinfo_state)
+        return linalg.solve(self.r, self.sqinfo_state)
 
     @property
     def innovation(self) -> torch.Tensor:
@@ -72,11 +77,11 @@ class Estimate(NamedTuple):
     @property
     def covariance(self) -> torch.Tensor:
         """P = R⁻¹ R⁻ᵀ (srif.go:252-265)."""
-        return linalg.factor_product(linalg.inv_qr(self.r))
+        return linalg.factor_product(linalg.inv(self.r))
 
     @property
     def pred_covariance(self) -> torch.Tensor:
-        return linalg.factor_product(linalg.inv_qr(self.pred_r))
+        return linalg.factor_product(linalg.inv(self.pred_r))
 
     def within_nsigma(self, n_sigma) -> torch.Tensor:
         return linalg.is_within_nsigma(self.state, self.covariance, n_sigma)
@@ -158,7 +163,7 @@ def _time_update(model: Model, state: State, phi):
     triangularized over all q+n columns, its bottom block the propagated
     (R̄', b̄').  (b̄ = R̄ Φ x̂ = R x̂ = b, so the stacked RHS is b.)
     """
-    phi_inv = linalg.inv_qr(phi)
+    phi_inv = linalg.inv(phi)
     r_bar = state.r @ phi_inv
     if model.gamma is not None:
         n = state.b.shape[0]
@@ -167,7 +172,7 @@ def _time_update(model: Model, state: State, phi):
         bot = torch.cat([-(r_bar @ model.gamma), r_bar, state.b[:, None]], dim=1)
         a = linalg.householder_triangularize(torch.cat([top, bot], dim=0), q + n, 0)
         return a[q:, q:q + n], a[q:, q + n]
-    x_hat = linalg.solve_qr(state.r, state.b)
+    x_hat = linalg.solve(state.r, state.b)
     b_bar = r_bar @ (phi @ x_hat)
     if not model.non_tri_r:
         n = b_bar.shape[0]
@@ -177,22 +182,16 @@ def _time_update(model: Model, state: State, phi):
     return r_bar, b_bar
 
 
-@linalg.highp
-def predict(model: Model, state: State, phi):
-    """Pure time update (reference: srif.go:96-98, 134-141)."""
-    phi = torch.as_tensor(phi, dtype=state.r.dtype, device=state.r.device)
-    r_bar, b_bar = _time_update(model, state, phi)
+def _predict_from(model: Model, state: State, phi, r_bar, b_bar):
     zeros_p = b_bar.new_zeros(model.meas_size)
     est = Estimate(phi, b_bar, zeros_p, zeros_p, r_bar, r_bar)
     return State(r_bar, b_bar, state.k + 1), est
 
 
-@linalg.highp
-def update(model: Model, state: State, phi, htilde, real_obs, computed_obs):
-    """Full time + measurement update (reference: srif.go:101-160)."""
+def _update_from(model: Model, state: State, phi, r_bar, b_bar, htilde, real_obs,
+                 computed_obs):
     as_t = lambda a: torch.as_tensor(a, dtype=state.r.dtype, device=state.r.device)
-    phi, real_obs = as_t(phi), as_t(real_obs)
-    r_bar, b_bar = _time_update(model, state, phi)
+    real_obs = as_t(real_obs)
     y = real_obs - as_t(computed_obs)
     h_w = model.sqrt_inv_noise @ as_t(htilde)
     y_w = model.sqrt_inv_noise @ y
@@ -202,13 +201,30 @@ def update(model: Model, state: State, phi, htilde, real_obs, computed_obs):
 
 
 @linalg.highp
+def predict(model: Model, state: State, phi):
+    """Pure time update (reference: srif.go:96-98, 134-141)."""
+    phi = torch.as_tensor(phi, dtype=state.r.dtype, device=state.r.device)
+    return _predict_from(model, state, phi, *_time_update(model, state, phi))
+
+
+@linalg.highp
+def update(model: Model, state: State, phi, htilde, real_obs, computed_obs):
+    """Full time + measurement update (reference: srif.go:101-160)."""
+    phi = torch.as_tensor(phi, dtype=state.r.dtype, device=state.r.device)
+    return _update_from(model, state, phi, *_time_update(model, state, phi), htilde,
+                        real_obs, computed_obs)
+
+
+@linalg.highp
 def step(model: Model, state: State, phi, htilde, real_obs, computed_obs, has_meas):
     """Masked step: the update where `has_meas`, the prediction where
-    not.  Both branches run and `torch.where` picks, so a device-side
-    `has_meas` never syncs with the host (a Python bool is picked on
-    the host)."""
-    st_u, est_u = update(model, state, phi, htilde, real_obs, computed_obs)
-    st_p, est_p = predict(model, state, phi)
+    not, from one shared time update.  Both branches run and
+    `torch.where` picks, so a device-side `has_meas` never syncs with the
+    host (a Python bool is picked on the host)."""
+    phi = torch.as_tensor(phi, dtype=state.r.dtype, device=state.r.device)
+    bar = _time_update(model, state, phi)
+    st_u, est_u = _update_from(model, state, phi, *bar, htilde, real_obs, computed_obs)
+    st_p, est_p = _predict_from(model, state, phi, *bar)
     if not isinstance(has_meas, torch.Tensor):
         return (st_u, est_u) if has_meas else (st_p, est_p)
     pick = lambda a, b: torch.where(has_meas, a, b)

@@ -2,9 +2,11 @@
 
 `ensemble` holds the plain PyTorch pipelines (the oracle), `fused_mc`
 the hand-written kernels' wrappers and plain versions, `philox` the
-kernels' random-number device functions in torch, `scan` the log-depth
-associative scan, `assoc_scan` the parallel-in-time filter and RTS
-smoother built on it.  `_build` compiles `csrc/*.cu` at first use only.
+kernels' random-number device functions in torch, `scan` the
+sequential scan (one CUDA graph replayed per step on the card) and the
+log-depth associative scan, `assoc_scan` the parallel-in-time filter and
+RTS smoother built on the latter.  `_build` compiles `csrc/*.cu` at
+first use only.
 """
 
 from . import assoc_scan, ensemble, fused_mc, philox, scan

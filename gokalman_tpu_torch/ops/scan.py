@@ -1,9 +1,14 @@
-"""Log-depth associative scan over the leading axis.
+"""Scans over the leading axis: the counterparts of `jax.lax.scan` and
+`jax.lax.associative_scan`, which torch lacks.
 
-The counterpart of `jax.lax.associative_scan`, which torch lacks.  It
-follows the same odd/even recursion, so the combine tree, and with it
-the rounding, matches the JAX one: O(log T) levels, each one batched
-call of `fn` over [k, ...] slices.
+`scan` is the sequential loop of a step function.  On CPU tensors it is
+a Python loop; on CUDA tensors the step is recorded once into a CUDA
+graph and replayed once per element, so a step of hundreds of tiny
+kernels costs their device time rather than their launches.
+
+`associative_scan` follows JAX's odd/even recursion, so the combine
+tree, and with it the rounding, matches the JAX one: O(log T) levels,
+each one batched call of `fn` over [k, ...] slices.
 """
 
 from __future__ import annotations
@@ -11,8 +16,105 @@ from __future__ import annotations
 from typing import Callable, Sequence, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 Elems = Tuple[torch.Tensor, ...]
+
+
+def scan(step: Callable, carry, xs, length: int = None, *, graph: bool = True):
+    """`jax.lax.scan`: for t in 0..T-1, `carry, y_t = step(carry, x_t)`
+    where x_t is row t of every tensor leaf of `xs` (None and other
+    non-tensor leaves pass through as they are; `xs=None` with `length`
+    gives x_t = None).  Returns (final carry, ys) with the y_t stacked
+    along a new leading axis, in y's pytree structure.
+
+    With CUDA tensors and `graph=True` the step runs as one CUDA graph:
+    `step` is warmed up once on a side stream, then captured reading its
+    row through `index_select` on a device counter and writing its
+    outputs with `index_copy_` into [T, ...] buffers, and the graph is
+    replayed T times.  The step must then make no host sync and create
+    no tensor from host data; a capture failure raises (there is no
+    eager fallback).  Carry leaves must keep their shape and dtype.
+    `graph=False`, or CPU tensors, run the plain loop.
+    """
+    flat_xs, xs_spec = pytree.tree_flatten(xs)
+    rows = [a for a in flat_xs if isinstance(a, torch.Tensor)]
+    steps = rows[0].shape[0] if rows else length
+    if steps is None:
+        raise ValueError("scan needs tensor xs or a length")
+    leaves = [a for a in pytree.tree_flatten(carry)[0] + flat_xs
+              if isinstance(a, torch.Tensor)]
+    on_card = bool(leaves) and leaves[0].device.type == "cuda"
+    if graph and on_card and steps > 0:
+        return _graph_scan(step, carry, flat_xs, xs_spec, steps, leaves[0].device)
+    ys = []
+    for t in range(steps):
+        x_t = pytree.tree_unflatten(
+            [a[t] if isinstance(a, torch.Tensor) else a for a in flat_xs], xs_spec)
+        carry, y = step(carry, x_t)
+        ys.append(y)
+    if not ys:
+        raise ValueError("scan of length 0")
+    flat_ys = [pytree.tree_flatten(y)[0] for y in ys]
+    y_spec = pytree.tree_flatten(ys[0])[1]
+    stacked = [torch.stack(col) if isinstance(col[0], torch.Tensor) else col[0]
+               for col in zip(*flat_ys)]
+    return carry, pytree.tree_unflatten(stacked, y_spec)
+
+
+def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
+    flat_c, c_spec = pytree.tree_flatten(carry)
+    static_c = [a.clone() if isinstance(a, torch.Tensor) else a for a in flat_c]
+    static_x = [a.contiguous() if isinstance(a, torch.Tensor) else a for a in flat_xs]
+    counter = torch.zeros(1, dtype=torch.long, device=device)
+
+    def body():
+        x_t = pytree.tree_unflatten(
+            [a.index_select(0, counter).squeeze(0) if isinstance(a, torch.Tensor) else a
+             for a in static_x], xs_spec)
+        new_c, y = step(pytree.tree_unflatten(static_c, c_spec), x_t)
+        return pytree.tree_flatten(new_c)[0], pytree.tree_flatten(y)
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        new_c, (y_w, y_spec) = body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    for old, new in zip(static_c, new_c):
+        if isinstance(old, torch.Tensor) and (
+                not isinstance(new, torch.Tensor) or new.shape != old.shape
+                or new.dtype != old.dtype):
+            raise ValueError(f"scan carry changed from {old.shape} {old.dtype} to "
+                             f"{getattr(new, 'shape', None)} {getattr(new, 'dtype', None)}")
+    out = [torch.empty((steps,) + y.shape, dtype=y.dtype, device=device)
+           if isinstance(y, torch.Tensor) else y for y in y_w]
+    del new_c, y_w
+    # capture_begin / capture_end on the side stream: what
+    # `torch.cuda.graph` does without its gc.collect() and empty_cache(),
+    # which would cost every call.
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        cuda_graph.capture_begin()
+        try:
+            new_c, (ys, _) = body()
+            # Clone what aliases a carry buffer before any buffer is written.
+            new_c = [new.clone() if isinstance(new, torch.Tensor) and any(
+                isinstance(b, torch.Tensor) and new.untyped_storage().data_ptr()
+                == b.untyped_storage().data_ptr() for b in static_c) else new
+                     for new in new_c]
+            for buf, new in zip(static_c, new_c):
+                if isinstance(buf, torch.Tensor):
+                    buf.copy_(new)
+            for buf, y in zip(out, ys):
+                if isinstance(buf, torch.Tensor):
+                    buf.index_copy_(0, counter, y.unsqueeze(0))
+            counter.add_(1)
+        finally:
+            cuda_graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    for _ in range(steps):
+        cuda_graph.replay()
+    return pytree.tree_unflatten(static_c, c_spec), pytree.tree_unflatten(out, y_spec)
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
