@@ -7,19 +7,24 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from `gokalman_tpu_torch/csrc` (all
 specialisations at once, with nvcc's ptxas report and, where the
-toolkit has `cuobjdump`, K1's SASS instructions per member-step), holds
-each against its plain PyTorch version (K1 also with a rank's member
-offset, on the jerk-car tv + control schedule and at n = 16), gates the
-generators' statistics, and drives the main path at full size (98,304
-Monte-Carlo runs x 1,000 steps of the 6-state constant-velocity CKF)
-through `MonteCarloChiSquare`, with both generators, its model built
-with no `device=` (the port's entry points default to the card).  Then
-the sharded path, `sharded_mc_chi_square_fused`, at the same size: in
-an NCCL group of one rank, and on two spawned ranks of a gloo group on
-the one card (49,152 members each), each held to the one-rank result.
-Then the kernels' times beside their plain versions, `torch.randn`
-for K2 and each kernel's bound, and K1's device time with its shares of
-the bounds.  Last, the paths that are plain PyTorch and launch no
+toolkit has `cuobjdump`, K1's SASS instructions per member-step and
+K2's per group of four draws), holds each against its plain PyTorch
+version (K1 also with a rank's member offset, on the jerk-car tv +
+control schedule and at n = 16; K2 also at 2**22 and 2**28 draws, and
+its C key schedule against `philox.key_schedule`), times K2's launch
+path piece by piece, gates the generators' statistics, and drives the
+main path at full size (98,304 Monte-Carlo runs x 1,000 steps of the
+6-state constant-velocity CKF) through `MonteCarloChiSquare`, with
+both generators, its model built with no `device=` (the port's entry
+points default to the card).  Then the sharded path,
+`sharded_mc_chi_square_fused`, at the same size: in an NCCL group of
+one rank, and on two spawned ranks of a gloo group on the one card
+(49,152 members each), each held to the one-rank result.  Then K1's
+times beside its plain version and its bounds, and K2's event and
+device times at 524,288 and 2**28 draws beside `torch.randn`, its plain
+version and its bytes and issue bounds.  Then `ops.scan.scan`'s CUDA
+graph held to its loop on a step that emits its incoming carry.
+Last, the paths that are plain PyTorch and launch no
 kernel of the port's own: bench.py's smoother legs (filter_parallel +
 smooth_parallel over 256 x 1,024 and 16 x 65,536 streams x steps in
 f32, with bench.py's RMSE gate, the time per call, peak memory, kernel
@@ -29,23 +34,26 @@ time-sharded filter/smoother on one 65,536-step f64 sequence in an NCCL
 group of one rank (held to the single-device scan) and on two gloo
 ranks on the one card (held to world 1); the information,
 square-root, SRIF, hybrid and batch filters and the smoothers in f64,
-each against its reference; and bench_od.py's orbit-determination
-scenario at full size (the 8,640-step truth on the card, the 5,120-step
-arc) through the port's OD runners, eight of bench_od.py's rows each
-inside its accuracy gate with its OD steps per second, the CUDA-graph
-replay held to the eager loop, no host sync per step, and kernels,
-operations and device busy share per step.  Every phase raises on failure; there is
-no CPU or plain-version fallback.  The last line of standard output is
-one JSON object with the device; the line before it lists each kernel's
-launches on the counted paths, its error against the plain version, its
-times and its bound.  Without CUDA it exits non-zero and prints no
-result.
+each against its reference (and `vanilla.run`'s per-step R draws with
+no host sync); and bench_od.py's orbit-determination scenario at full
+size (the 8,640-step truth on the card, the 5,120-step arc) through the
+port's OD runners, eight of bench_od.py's rows each inside its accuracy
+gate with its OD steps per second (one call after a warm-up), the
+CUDA-graph replay held to the eager loop, no host sync per step, and
+kernels, operations and device busy share per step.  Every phase
+raises on failure; there is no CPU or plain-version fallback.  The
+last line of standard output is one JSON object with the device; the
+line before it lists each kernel's launches on the counted paths, its
+error against the plain version, its times and its bound.  Without
+CUDA it exits non-zero and prints no result.
 """
 
+import functools
 import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -55,6 +63,12 @@ from concurrent.futures import ThreadPoolExecutor
 SEED = 20261016
 SAMPLES, STEPS = 98_304, 1_000  # bench.py's main-path shape
 DRAWS = 524_288  # generator-statistics sample (tests/test_pallas_mc.py)
+# K2 at scale: 2**28 draws are 1 GiB of float32, far above the 50 MB L2;
+# its first 2**22 are held to a 2**22-draw run and to the plain version.
+K2_BIG, K2_PREFIX = 2**28, 2**22
+K2_LAUNCH_CALLS = 1_000  # calls per piece of the launch path timed
+K2_ROUNDS = 5  # rounds of K2's event timing, in turns with torch.randn
+KEY_SEEDS = (0, 1, -1, 2**32 + 5, 2**63 - 1, SEED)  # C key schedule checks
 # K2 vs its plain version on the same counters.  Box-Muller: a few ulps
 # of logf and of the sincos polynomial (FMA contraction) times the 5.9σ
 # tail cap.  CLT: exact arithmetic in both, so equal.
@@ -85,6 +99,10 @@ REPLACES = {
     "fused_mc": "gokalman_tpu/ops/pallas_mc.py:596",
     "sample_normals": "gokalman_tpu/ops/pallas_mc.py:164",
 }
+SOURCES = {
+    "fused_mc": "gokalman_tpu_torch/csrc/fused_mc.cu",
+    "sample_normals": "gokalman_tpu_torch/csrc/sample_normals.cu",
+}
 # K1 specialisations built and checked: (n, p, tv, ctrl).  The main
 # path's cv6, the jerk-car's tv + control schedule, and the largest
 # state the kernel takes.
@@ -96,6 +114,10 @@ PEAK_FP64 = 34e12  # FP64 outside the tensor cores, same data sheet
 # A 32x32->64-bit multiply is two IMADs (lo, hi) at half the FMA rate:
 # four FMA issue slots, i.e. 8 FP32 operations' worth of the pipe.
 FLOPS_PER_WIDE_MUL = 8
+# Warp instructions the H100 SXM issues per second: 132 SMs x 4
+# schedulers x one instruction a clock at the 1.98 GHz boost clock (the
+# rate of K1's issue bound).
+WARP_INSTR_PER_S = 132 * 4 * 1.98e9
 
 
 class SmokeFailure(Exception):
@@ -246,11 +268,11 @@ def k1_bounds(work):
             (flops + FLOPS_PER_WIDE_MUL * muls) / PEAK_FP32 * 1e3)
 
 
-def sass_step_loops(path):
-    """{(n, p, tv, ctrl, fast): counts} of K1's step loop in the SASS of
-    the library at `path` (cuobjdump -sass): the smallest loop that
-    holds the warp butterfly's SHFL.BFLY, i.e. the instructions a warp
-    issues per step for its 32 members.  None without cuobjdump."""
+def sass_loops(path):
+    """{function: [loop body, ...]} of the SASS of the library at `path`
+    (cuobjdump -sass): for every backward branch, the instructions from
+    its target to it, the smallest loop first.  None without
+    cuobjdump."""
     from gokalman_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -260,10 +282,6 @@ def sass_step_loops(path):
                           timeout=300).stdout
     out = {}
     for func in text.split("Function : ")[1:]:
-        m = re.search(r"fused_mc_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E",
-                      func.split("\n", 1)[0])
-        if not m:
-            continue
         insts, labels, pending = [], {}, []
         for line in func.splitlines():
             lab = re.match(r"\s*(\.L_x_\d+):", line)
@@ -286,17 +304,55 @@ def sass_step_loops(path):
                 int(hexa.group(1), 16) if hexa else None)
             if target is not None and target <= addr:
                 loops.append((addr - target, target, addr))
-        bodies = [[t for a, t in insts if lo <= a <= hi] for _, lo, hi in sorted(loops)]
-        body = next((b for b in bodies if any("SHFL.BFLY" in t for t in b)), None)
-        if body is None:
-            continue
-        count = lambda op: sum(1 for t in body if re.search(op, t))
-        out[tuple(int(g) for g in m.groups())] = {
-            "instructions": len(body), "SHFL": count(r"\bSHFL"),
+        out[func.split("\n", 1)[0].strip()] = [
+            [t for a, t in insts if lo <= a <= hi] for _, lo, hi in sorted(loops)]
+    return out
+
+
+def sass_counts(body):
+    count = lambda op: sum(1 for t in body if re.search(op, t))
+    return {"instructions": len(body), "SHFL": count(r"\bSHFL"),
             "LDS": count(r"\bLDS"), "BAR": count(r"\bBAR\b"),
             "BRA": count(r"\bBRA\b"), "CALL": count(r"\bCALL"),
             "MUFU": count(r"\bMUFU"), "FFMA": count(r"\bFFMA\b"),
-            "IMAD.WIDE": count(r"\bIMAD\.WIDE")}
+            "IMAD.WIDE": count(r"\bIMAD\.WIDE"), "STG": count(r"\bSTG\.")}
+
+
+def sass_step_loops(path):
+    """{(n, p, tv, ctrl, fast): counts} of K1's step loop in the library
+    at `path`: the smallest loop that holds the warp butterfly's
+    SHFL.BFLY, i.e. the instructions a warp issues per step for its 32
+    members.  None without cuobjdump."""
+    loops = sass_loops(path)
+    if loops is None:
+        return None
+    out = {}
+    for name, bodies in loops.items():
+        m = re.search(r"fused_mc_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])ELb([01])E", name)
+        body = next((b for b in bodies if any("SHFL.BFLY" in t for t in b)), None)
+        if m and body is not None:
+            out[tuple(int(g) for g in m.groups())] = sass_counts(body)
+    return out
+
+
+def sass_draw_loops(path):
+    """{fast_rng: counts} of K2's main loop in the library at `path`: the
+    loop with the most global stores (one float4 per group of four
+    draws), with "per_group", its instructions per store, i.e. what a
+    warp issues per group for its 32 threads.  None without
+    cuobjdump."""
+    loops = sass_loops(path)
+    if loops is None:
+        return None
+    out = {}
+    for name, bodies in loops.items():
+        m = re.search(r"sample_normals_kernelILb([01])E", name)
+        if not m or not bodies:
+            continue
+        counts = max((sass_counts(b) for b in bodies),
+                     key=lambda c: (c["STG"], -c["instructions"]))
+        counts["per_group"] = counts["instructions"] / max(counts["STG"], 1)
+        out[bool(int(m.group(1)))] = counts
     return out
 
 
@@ -355,8 +411,10 @@ def setup():
 def phase_build():
     """Build every kernel of the path from the checkout, one nvcc per
     specialisation, all started together.  Logs ptxas's report, K1's
-    chunk and shared memory, and K1's SASS step loop; the main path's K1
-    must not spill."""
+    chunk and shared memory, K2's persistent grid, K1's SASS step loop
+    and K2's draw loop; the main path's K1 must not spill.  Returns K2's
+    SASS instructions per group of four draws, per generator, or None
+    without cuobjdump."""
     from gokalman_tpu_torch.ops import _build, fused_mc
 
     t0 = time.perf_counter()
@@ -373,6 +431,10 @@ def phase_build():
         log(f"[build] K1 {spec}: chunk {lib.fused_mc_chunk_steps()} steps, "
             f"{lib.fused_mc_smem_bytes()} B dynamic shared memory per block, "
             f"row {lib.fused_mc_row_len()} floats")
+    k2 = libs[0]
+    log(f"[build] K2: persistent grid {k2.sample_normals_grid(0)} / "
+        f"{k2.sample_normals_grid(1)} blocks (box_muller / clt) of "
+        f"{k2.sample_normals_threads()} threads")
     main_rec = next(r for r in _build.records if r["defines"].get("KN") == 6)
     spills = re.findall(r"(\d+) bytes spill stores", main_rec["ptxas"])
     check(spills and not any(int(b) for b in spills),
@@ -385,25 +447,105 @@ def phase_build():
             log(f"[sass] K1 (n, p, tv, ctrl, fast_rng) = {key}: step loop "
                 f"{counts['instructions']} instructions per warp-step "
                 f"(= per member-step per lane); " + json.dumps(counts))
+    k2_rec = next(r for r in _build.records if r["source"] == fused_mc.K2_SOURCE)
+    k2_sass = sass_draw_loops(k2_rec["path"])
+    if k2_sass is None:
+        log("[sass] K2 draw loop: not measured (no cuobjdump)")
+        return None
+    for fast, counts in sorted(k2_sass.items()):
+        log(f"[sass] K2 {'clt' if fast else 'box_muller'}: draw loop "
+            f"{counts['instructions']} instructions for {counts['STG']} groups, "
+            f"{counts['per_group']:.2f} per group of four draws per warp lane; "
+            + json.dumps(counts))
+    return {("clt" if fast else "box_muller"): c["per_group"] for fast, c in k2_sass.items()}
 
 
 def phase_k2_vs_plain(torch, device):
-    """K2 against its plain version, both generators, ragged
-    count; returns the largest absolute difference."""
-    from gokalman_tpu_torch.ops import fused_mc
+    """K2 against its plain version, both generators: the ragged
+    DRAWS + 3 and K2_PREFIX counts within K2_TOL; the first K2_PREFIX
+    draws of a K2_BIG run bitwise equal to the K2_PREFIX run; the three
+    tail draws of K2_BIG + 3 held to the plain draws of their counter.
+    First the C key schedule against `philox.key_schedule` for
+    KEY_SEEDS.  Returns the largest absolute difference."""
+    import numpy as np
 
+    from gokalman_tpu_torch.ops import fused_mc, philox
+
+    lib = fused_mc.load_sample_normals()
+    keys = np.zeros(2 * philox.ROUNDS, dtype=np.uint32)
+    for seed in KEY_SEEDS:
+        lib.philox_key_schedule(philox.seed_bits(seed), keys.ctypes.data)
+        want = philox.key_schedule(seed)
+        check(np.array_equal(keys, want),
+              f"C key schedule of seed {seed}: {keys.tolist()} != {want.tolist()}")
+    log(f"[K2 keys] the C launch's round keys equal philox.key_schedule for seeds "
+        f"{list(KEY_SEEDS)}")
     worst = 0.0
-    ragged = DRAWS + 3
     for gen, tol in K2_TOL.items():
-        zk = fused_mc.sample_normals(ragged, SEED, gen, device=device)
-        zr = fused_mc.sample_normals_ref(ragged, SEED, gen, device=device)
-        torch.cuda.synchronize()
-        check(zk.shape == (ragged,), f"K2 {gen}: shape {tuple(zk.shape)}")
-        err = float((zk - zr).abs().max())
-        worst = max(worst, err)
-        log(f"[K2 vs plain] {gen}: count {ragged} max|diff| {err:.3g} (tol {tol:g})")
-        check(err <= tol, f"K2 {gen} disagrees with its plain version: {err}")
+        errs = {}
+        for count in (DRAWS + 3, K2_PREFIX):
+            zk = fused_mc.sample_normals(count, SEED, gen, device=device)
+            zr = fused_mc.sample_normals_ref(count, SEED, gen, device=device)
+            check(zk.shape == (count,), f"K2 {gen}: shape {tuple(zk.shape)}")
+            errs[count] = float((zk - zr).abs().max())
+            check(errs[count] <= tol,
+                  f"K2 {gen} disagrees with its plain version at {count}: {errs[count]}")
+        big = fused_mc.sample_normals(K2_BIG, SEED, gen, device=device)
+        check(bool(torch.isfinite(big).all()), f"K2 {gen}: non-finite draws at {K2_BIG}")
+        check(torch.equal(big[:K2_PREFIX], zk),
+              f"K2 {gen}: the first {K2_PREFIX} of {K2_BIG} draws differ from a "
+              f"{K2_PREFIX}-draw run")
+        del big
+        ragged = fused_mc.sample_normals(K2_BIG + 3, SEED, gen, device=device)
+        member = torch.tensor([K2_BIG // 4], device=device)
+        tail = philox.normals(SEED, member, philox.INIT_DRAW, 4, gen == "clt")[:3, 0]
+        tail_err = float((ragged[K2_BIG:] - tail).abs().max())
+        del ragged
+        check(tail_err <= tol, f"K2 {gen}: tail of {K2_BIG + 3} draws off by {tail_err}")
+        worst = max(worst, tail_err, *errs.values())
+        log(f"[K2 vs plain] {gen}: max|diff| {errs[DRAWS + 3]:.3g} at {DRAWS + 3}, "
+            f"{errs[K2_PREFIX]:.3g} at {K2_PREFIX}, {tail_err:.3g} on the 3 tail draws of "
+            f"{K2_BIG + 3} (tol {tol:g}); the first {K2_PREFIX} of {K2_BIG} draws bitwise "
+            f"equal to the {K2_PREFIX}-draw run")
     return worst
+
+
+def phase_k2_launch(torch, device):
+    """[K2 launch]: host nanoseconds per call of each piece of
+    `sample_normals` at DRAWS draws, each timed alone over
+    K2_LAUNCH_CALLS calls (the current-device check, the raw stream
+    handle, the ctypes call that builds the round keys and launches),
+    then the whole call."""
+    from gokalman_tpu_torch._device import resolve_device
+    from gokalman_tpu_torch.ops import fused_mc, philox
+
+    lib = fused_mc.load_sample_normals()
+    out = torch.empty(DRAWS, dtype=torch.float32, device=device)
+    ptr, seed, index = out.data_ptr(), philox.seed_bits(SEED), device.index
+    stream = torch.cuda.current_stream(device).cuda_stream
+    pieces = {
+        "resolve_device": lambda: resolve_device(device),
+        "torch.empty": lambda: torch.empty(DRAWS, dtype=torch.float32, device=device),
+        "current-device check": torch._C._cuda_getDevice,
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "ctypes call": lambda: lib.sample_normals_launch(ptr, DRAWS, seed, 0, stream),
+        "whole call": lambda: fused_mc.sample_normals(DRAWS, SEED, "box_muller", device),
+    }
+    ns = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(K2_LAUNCH_CALLS):
+            fn()
+        ns[name] = (time.perf_counter_ns() - t0) / K2_LAUNCH_CALLS
+        torch.cuda.synchronize()
+    parts = [n for n in pieces if n != "whole call"]
+    log("[K2 launch] " + ", ".join(f"{n} {ns[n]:.0f}" for n in parts)
+        + f"; sum {sum(ns[n] for n in parts):.0f} ns, whole sample_normals call "
+        f"{ns['whole call']:.0f} ns per call (host clock, {K2_LAUNCH_CALLS} calls each, "
+        f"{DRAWS} draws)")
+    return ns
 
 
 def phase_k1_vs_plain(gt, torch, device):
@@ -632,19 +774,13 @@ def phase_sharded_world2(world1):
     return [out["launches"] for out in outs]
 
 
-def phase_full_size(mod, device):
+def phase_full_size(mod):
     """K1 and its plain version at the main path's full shape, same seed:
     CUDA-event times of `forward` (K1 + pooling) and of the plain
     `reference` (its partials + the same pooling), every trace compared,
-    and K1's partials alone timed beside them.  K2, its plain version and
-    `torch.randn` of the same count timed at the generator gates' shape.
-    Returns the times {name: (kernel ms, plain ms, library ms or None)},
-    K1's being `forward`'s and `reference`'s, and K1's largest
+    and K1's partials alone timed beside them.  Returns the times
+    {name: (`forward` ms, `reference` ms)} and K1's largest
     difference."""
-    import torch
-
-    from gokalman_tpu_torch.ops import fused_mc
-
     times, worst = {}, 0.0
     for fast in (False, True):
         key = "fast_rng" if fast else "exact"
@@ -655,52 +791,125 @@ def phase_full_size(mod, device):
         p_ms, ref = cuda_ms(lambda: mod.reference(SAMPLES, SEED, fast), 1,
                             lambda: mod.reference(1024, SEED, fast))
         worst = max(worst, compare_traces(f"cv6 {key} {SAMPLES}x{STEPS}", out, ref))
-        times[f"fused_mc_{key}"] = (f_ms, p_ms, None)
+        times[f"fused_mc_{key}"] = (f_ms, p_ms)
         log(f"[time] fused_mc {key} {SAMPLES}x{STEPS}: forward {f_ms:.3f} ms "
             f"({SAMPLES * STEPS / f_ms * 1e3:.4g} member-steps/s), K1 partials "
             f"alone {k_ms:.3f} ms, plain {p_ms:.1f} ms "
             f"({SAMPLES * STEPS / p_ms * 1e3:.4g} member-steps/s)")
-    # torch.randn's first calls in the process run several times slower
-    # than later ones, so it gets 20 warm-up calls.
-    randn = lambda: torch.randn(DRAWS, device=device)
-    randn_ms = cuda_ms(randn, 200, lambda: [randn() for _ in range(20)])[0]
-    for gen in K2_TOL:
-        draw = lambda: fused_mc.sample_normals(DRAWS, SEED, gen, device)
-        draw_ref = lambda: fused_mc.sample_normals_ref(DRAWS, SEED, gen, device)
-        times[f"sample_normals_{gen}"] = (cuda_ms(draw, 200, draw)[0],
-                                          cuda_ms(draw_ref, 5, draw_ref)[0],
-                                          randn_ms)
-        log(f"[time] sample_normals {gen} {DRAWS}: kernel "
-            f"{times[f'sample_normals_{gen}'][0]:.4f} ms, plain "
-            f"{times[f'sample_normals_{gen}'][1]:.3f} ms, torch.randn "
-            f"{times[f'sample_normals_{gen}'][2]:.4f} ms")
     log("[time] " + json.dumps({"ms": {k: v[0] for k, v in times.items()},
-                                "plain_ms": {k: v[1] for k, v in times.items()},
-                                "library_ms": {k: v[2] for k, v in times.items()}}))
+                                "plain_ms": {k: v[1] for k, v in times.items()}}))
     return times, worst
 
 
-def phase_device_times(mod, device):
-    """Device time per launch of each kernel, from torch.profiler's CUPTI
-    trace; "not measured" where the trace holds no device time.  K1's
-    time beside its bounds (`k1_bounds`): the FP32 roofline's share, and
-    the share of the bound that also counts the generator's multiplies."""
-    import torch
+# FP32 operations of K2's normal maps per group of four draws, counted
+# from philox.cuh: a Box-Muller pair is 34 (two conversions and 3
+# operations for the uniforms, logf, -2x, sqrt, 4 for the quadrant
+# reduction, the two polynomials as 4 FMAs each plus a multiply (17),
+# a conversion, 2 sign flips, r cos and r sin); a CLT word is 9 (the
+# popcount, two conversions, 3 for the dither, 3 to centre and scale).
+K2_MAP_FLOPS = {"box_muller": 68, "clt": 36}
+
+
+def k2_bounds(count, generator, per_group):
+    """(ms by bytes, ms by operations, ms by instruction issue or None)
+    of K2 at `count` draws.  Bytes: 4 per draw written; K2 reads
+    nothing.  Operations: per group of four draws one Philox call, 20
+    32x32->64-bit multiplies at FLOPS_PER_WIDE_MUL each, plus the map's
+    K2_MAP_FLOPS.  Issue: `per_group` SASS instructions (phase_build)
+    per group for each warp's 32 groups, at WARP_INSTR_PER_S."""
+    groups = -(-count // 4)
+    ops = groups * (20 * FLOPS_PER_WIDE_MUL + K2_MAP_FLOPS[generator])
+    issue = None if per_group is None else groups / 32 * per_group / WARP_INSTR_PER_S * 1e3
+    return 4 * count / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3, issue
+
+
+def profiled_ms(torch, fn, calls, name):
+    """Device milliseconds per launch of the kernels whose name holds
+    `name` over `calls` calls of `fn`, from torch.profiler's CUPTI trace;
+    None where the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if name in e.key:
+            total_us = getattr(e, "device_time_total", None) or e.cuda_time_total
+            if total_us:
+                return total_us / e.count / 1e3
+    return None
+
+
+def phase_k2_time(torch, device, per_group):
+    """K2 at DRAWS and K2_BIG draws, both generators: CUDA-event ms per
+    call over back-to-back calls (200 at DRAWS, 20 at K2_BIG), taken in
+    K2_ROUNDS rounds that take turns with `torch.randn` of the same count
+    (the library call), the median of each kept (the host, which bounds
+    these calls at DRAWS, is shared with other machines' work); then the
+    profiler's device ms per launch, the plain version at DRAWS only (at
+    K2_BIG its int64 temporaries would need tens of GB), and the bounds
+    (`k2_bounds`) with the device time's share of each.  Returns
+    {(generator, count): record}."""
     from gokalman_tpu_torch.ops import fused_mc
+
+    out = {}
+    for count, reps in ((DRAWS, 200), (K2_BIG, 20)):
+        calls = {"randn": lambda: torch.randn(count, device=device)}
+        for gen in K2_TOL:
+            calls[gen] = functools.partial(fused_mc.sample_normals, count, SEED, gen, device)
+        # torch.randn's first calls in the process run several times
+        # slower than later ones, so every call gets 20 warm-up calls.
+        for fn in calls.values():
+            for _ in range(20):
+                fn()
+        rounds = {name: [] for name in calls}
+        for _ in range(K2_ROUNDS):
+            for name, fn in calls.items():
+                rounds[name].append(cuda_ms(fn, reps, lambda: None)[0])
+        med = {name: statistics.median(ms) for name, ms in rounds.items()}
+        spread = {name: f"{min(ms):.4f}-{max(ms):.4f}" for name, ms in rounds.items()}
+        for gen in K2_TOL:
+            ms, randn_ms = med[gen], med["randn"]
+            plain = None
+            if count == DRAWS:
+                ref = functools.partial(fused_mc.sample_normals_ref, count, SEED, gen, device)
+                plain = cuda_ms(ref, 5, ref)[0]
+            dev = profiled_ms(torch, calls[gen], reps, "sample_normals_kernel")
+            by_bytes, by_ops, by_issue = k2_bounds(count, gen, per_group and per_group[gen])
+            out[(gen, count)] = {
+                "ms": ms, "device_ms": dev, "library_ms": randn_ms, "plain_ms": plain,
+                "bytes_bound_ms": by_bytes, "ops_bound_ms": by_ops, "issue_bound_ms": by_issue}
+            share = lambda b: "not measured" if b is None or dev is None else f"{b / dev:.1%}"
+            log(f"[time] sample_normals {gen} {count}: {ms:.4f} ms per call (CUDA events, "
+                f"median of {K2_ROUNDS} rounds of {reps} calls, {spread[gen]}), device "
+                + ("not measured" if dev is None else f"{dev:.4f} ms")
+                + f" (profiler), torch.randn {randn_ms:.4f} ms ({spread['randn']}), plain "
+                + ("not timed" if plain is None else f"{plain:.3f} ms")
+                + f"; bounds {by_bytes:.4g} ms by bytes (share {share(by_bytes)}), "
+                f"{by_ops:.4g} ms by operations, "
+                + ("issue not measured" if by_issue is None else
+                   f"{by_issue:.4g} ms by issue (share {share(by_issue)})")
+                + f"; K2 {'no slower' if ms <= randn_ms else 'slower'} than torch.randn")
+    return out
+
+
+def phase_device_times(mod):
+    """K1's device time per launch, from torch.profiler's CUPTI trace;
+    "not measured" where the trace holds no device time.  K1's time
+    beside its bounds (`k1_bounds`): the FP32 roofline's share, and the
+    share of the bound that also counts the generator's multiplies."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for fast in (False, True):
             for _ in range(3):
                 mod(SAMPLES, SEED, fast)
-        for gen in K2_TOL:
-            for _ in range(20):
-                fused_mc.sample_normals(DRAWS, SEED, gen, device)
         torch.cuda.synchronize()
     found = {}
     for e in prof.key_averages():
-        if "fused_mc_kernel" in e.key or "sample_normals_kernel" in e.key:
+        if "fused_mc_kernel" in e.key:
             total_us = getattr(e, "device_time_total", None) or e.cuda_time_total
             ms = total_us / e.count / 1e3
             log(f"[profile] {e.key[:90]}: {ms:.4f} ms "
@@ -708,13 +917,9 @@ def phase_device_times(mod, device):
             fast = re.search(r"fused_mc_kernel<6, 3, false, false, (true|false)>", e.key)
             if fast:
                 found[f"fused_mc_{'fast_rng' if fast.group(1) == 'true' else 'exact'}"] = ms
-            elif "sample_normals" in e.key:
-                found[e.key] = ms
     if not found:
         log("[profile] kernel device time: not measured (no device events)")
     for key, ms in found.items():
-        if not key.startswith("fused_mc"):
-            continue
         by_bytes, fp32, with_gen = k1_bounds(
             k1_work(6, 3, False, False, SAMPLES, STEPS, key.endswith("fast_rng")))
         log(f"[bound] K1 {key} {SAMPLES}x{STEPS}: device {ms:.4f} ms; bounds "
@@ -817,6 +1022,42 @@ def synchronizing_calls(fn, warm=True):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     return [str(w.message) for w in caught if "synchronizing" in str(w.message)]
+
+
+def phase_scan(torch, device, steps=64):
+    """[scan]: `ops.scan.scan` on the card with a step that emits its
+    incoming carry and a slice of it as outputs.  The CUDA-graph replay
+    must equal the loop bitwise, and y_0 must be the initial carry (the
+    graph stores the outputs before it overwrites the carry).  A scan of
+    length 0 gives [0, ...] outputs on both paths."""
+    from torch.utils import _pytree as pytree
+
+    from gokalman_tpu_torch.ops.scan import scan
+
+    f64 = torch.float64
+
+    def step(carry, x):
+        a, b = carry
+        return (0.5 * a + x, b + a.sum()), (a, a[1:3], b)
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    xs = torch.randn(steps, 5, generator=gen, dtype=f64, device=device)
+    carry0 = (torch.randn(5, generator=gen, dtype=f64, device=device),
+              torch.zeros((), dtype=f64, device=device))
+    runs = {graph: scan(step, carry0, xs, graph=graph) for graph in (True, False)}
+    torch.cuda.synchronize()
+    leaves = {g: pytree.tree_leaves(r) for g, r in runs.items()}
+    check(all(torch.equal(a, b) for a, b in zip(leaves[True], leaves[False])),
+          "scan: the CUDA graph differs from the loop on a step that emits its carry")
+    check(torch.equal(runs[True][1][0][0], carry0[0]),
+          "scan: y_0 of the graph is not the initial carry")
+    empty = {g: scan(step, carry0, xs[:0], graph=g)[1] for g in (True, False)}
+    check(all(tuple(y.shape) == (0,) + tuple(w.shape[1:])
+              for g in empty for y, w in zip(pytree.tree_leaves(empty[g]), leaves[g][2:])),
+          "scan: a scan of length 0 gave outputs of the wrong shape")
+    log(f"[scan] {steps} steps f64 on the card, a step emitting its incoming carry and a "
+        f"slice of it: CUDA graph bitwise equal to the loop, y_0 the initial carry; "
+        f"length 0 gives [0, ...] outputs on both paths")
 
 
 def phase_smoother(gt, torch, device, card, shapes=SMOOTHER_SHAPES):
@@ -1013,6 +1254,17 @@ def phase_filters(gt, torch, device, steps=60):
 
     vm, vs = vanilla.new(x0, p0, f, g, h, gt.noise.noiseless(q, r), dtype=f64)
     _, vest = vanilla.run(vm, vs, t(ys), t(us))
+    # vanilla.run drawing its measurement noise from a per-step R
+    # (`rs=` with a generator): no host sync per step.
+    ys_t, us_t, rs_t = t(ys), t(us), t(np.repeat(r[None], steps, 0))
+    draws = torch.Generator(device=device).manual_seed(SEED)
+    syncs = [len(synchronizing_calls(lambda: vanilla.run(
+        vm, vs, ys_t[:k], us_t[:k], generator=draws, rs=rs_t[:k]))) for k in (5, 25)]
+    check(syncs[0] == syncs[1], f"vanilla.run(rs=, generator=) waits for the card: "
+          f"{syncs[1] - syncs[0]} synchronizing calls in 20 steps")
+    log(f"[filters] vanilla.run(rs=, generator=) on the card: "
+        f"{(syncs[1] - syncs[0]) / 20:g} synchronizing calls per step "
+        f"({syncs[0]} in a 5-step call, {syncs[1]} in a 25-step call)")
     # information and sqrt against vanilla (test_information.py:59-70).
     im, ist = information.new_from_state(x0, p0, f, g, h, gt.noise.noiseless(q, r), dtype=f64)
     _, iest = information.run(im, ist, t(ys), t(us))
@@ -1166,19 +1418,16 @@ def od_gate_rms(res, truth, has, tail=False):
 
 
 def od_time(torch, fn, steps):
-    """bench_od.py:96-120: the best of three host-clock times of `fn(steps)`,
-    each ended by reading the last estimate back, after one untimed
-    call (a short one: there is no compilation to amortize, the graph
-    is captured in every call).  Returns (best seconds, last result)."""
+    """bench_od.py:96-120's timing of one call: the host-clock time of
+    `fn(steps)`, ended by reading the last estimate back, after one
+    untimed call (a short one: there is no compilation to amortize, the
+    graph is captured in every call).  Returns (seconds, result)."""
     fn(min(OD_WARMUP_STEPS, steps))
     torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = fn(steps)
-        _ = float(res.est_states.reshape(-1)[-1])
-        best = min(best, time.perf_counter() - t0)
-    return best, res
+    t0 = time.perf_counter()
+    res = fn(steps)
+    _ = float(res.est_states.reshape(-1)[-1])
+    return time.perf_counter() - t0, res
 
 
 def od_rows(gt, torch, device, s):
@@ -1342,7 +1591,8 @@ def od_parity(torch, fn, steps):
 
 def phase_od(gt, torch, device, card):
     """bench_od.py's rows through the port's OD runners at the bench's
-    full size, each inside its gate; then `[od parity]` (graph replay
+    full size, each timed on one call after a warm-up (`od_time`) and
+    inside its gate; then `[od parity]` (graph replay
     against the eager loop), the synchronizing calls per eager step of
     every runner, kernels per step and device busy against wall time.
     Returns {row: record}."""
@@ -1359,10 +1609,10 @@ def phase_od(gt, torch, device, card):
     rows = od_rows(gt, torch, device, s)
     out = {}
     for name, (fn, truth, tail, pos_gate, vel_gate, dtype, sats) in rows.items():
-        best, res = od_time(torch, fn, steps)
+        secs, res = od_time(torch, fn, steps)
         n = res.est_states.shape[-2]
-        rec = {"metric": f"{name}_od_steps_per_sec", "value": (sats or 1) * n / best,
-               "unit": "od_steps/s", "ms_per_step": best / n * 1e3, "steps": n,
+        rec = {"metric": f"{name}_od_steps_per_sec", "value": (sats or 1) * n / secs,
+               "unit": "od_steps/s", "ms_per_step": secs / n * 1e3, "steps": n,
                "dtype": dtype, "card": card}
         if sats:
             finite = bool(torch.isfinite(res.est_states).all())
@@ -1423,7 +1673,7 @@ def phase_od(gt, torch, device, card):
     stages.append(("counts", time.perf_counter()))
     # Device time per replayed step: the difference of two profiled
     # graph runs cancels the set-up, the eager warm-up step and the
-    # capture; against the row's best host time per step.
+    # capture; against the row's host time per step.
     fn = rows["hybrid_ckf"][0]
     profs = [launch_profile(lambda: fn(n)) for n in OD_PROFILED_STEPS]
     if None in profs:
@@ -1435,7 +1685,7 @@ def phase_od(gt, torch, device, card):
         log(f"[od busy] hybrid_ckf: device busy {busy_ms * 1e3:.1f} us per replayed step in "
             f"{(profs[1][0] - profs[0][0]) / pspan:.1f} kernels (profiler, "
             f"{OD_PROFILED_STEPS[1]} - {OD_PROFILED_STEPS[0]} steps) against "
-            f"{row_ms * 1e3:.1f} us per step of the row's best call: busy share "
+            f"{row_ms * 1e3:.1f} us per step of the row's timed call: busy share "
             f"{busy_ms / row_ms:.1%}; top kernels of the longer run " + "; ".join(profs[1][3]))
     stages.append(("busy", time.perf_counter()))
     log("[od time] " + ", ".join(
@@ -1445,28 +1695,31 @@ def phase_od(gt, torch, device, card):
     return out
 
 
-def kernel_entry(name, key, counts, max_err, times, bound_ms, bound_by):
-    ms, plain_ms, library_ms = times[key]
-    return {"name": name, "route": "cuda",
-            "source": "gokalman_tpu_torch/csrc/fused_mc.cu",
+def kernel_entry(name, counts, max_err, ms, plain_ms, library_ms, bound_ms, bound_by,
+                 **extra):
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            **extra}
 
 
 def run():
     gt, torch, device = setup()
-    phase_build()
+    per_group = phase_build()
     max_err = {"sample_normals": phase_k2_vs_plain(torch, device),
                "fused_mc": max(phase_k1_vs_plain(gt, torch, device),
                                phase_k1_offset(gt, torch, device))}
+    phase_k2_launch(torch, device)
     mod, counts = phase_main_path(gt, torch, device)
     world1, launches1 = phase_sharded_world1(gt, torch, device)
     launches2 = phase_sharded_world2(world1)
     counts["fused_mc"] += launches1 + sum(launches2)
-    times, full_err = phase_full_size(mod, device)
+    times, full_err = phase_full_size(mod)
     max_err["fused_mc"] = max(max_err["fused_mc"], full_err)
-    phase_device_times(mod, device)
+    phase_device_times(mod)
+    k2 = phase_k2_time(torch, device, per_group)
+    phase_scan(torch, device)
 
     # The smoother legs, the time-sharded scan and the other filters:
     # plain PyTorch, no kernel of their own (the JAX package has no
@@ -1483,14 +1736,19 @@ def run():
 
     # K1: the larger of its bytes and FP32-operations bounds (the
     # generator's integer multiplies, on the same pipe, are in the
-    # [bound] line); K2: its 4 bytes per draw written.
+    # [bound] line).  K2: the larger of its bytes and operations bounds
+    # at DRAWS with Box-Muller; "sizes" holds both generators at DRAWS
+    # and K2_BIG, with the issue bound.
     k1 = k1_bounds(k1_work(6, 3, False, False, SAMPLES, STEPS, False))
-    k2_ms = 4 * DRAWS / PEAK_BYTES * 1e3
+    bm = k2[("box_muller", DRAWS)]
     kernels = [
-        kernel_entry("fused_mc", "fused_mc_exact", counts, max_err, times,
+        kernel_entry("fused_mc", counts, max_err, *times["fused_mc_exact"], None,
                      max(k1[:2]), "bytes" if k1[0] > k1[1] else "operations"),
-        kernel_entry("sample_normals", "sample_normals_box_muller", counts,
-                     max_err, times, k2_ms, "bytes")]
+        kernel_entry("sample_normals", counts, max_err, bm["ms"], bm["plain_ms"],
+                     bm["library_ms"], max(bm["bytes_bound_ms"], bm["ops_bound_ms"]),
+                     "bytes" if bm["bytes_bound_ms"] >= bm["ops_bound_ms"] else "operations",
+                     sizes={str(count): {gen: k2[(gen, count)] for gen in K2_TOL}
+                            for count in (DRAWS, K2_BIG)})]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ def resolve_device(device=None, *like) -> torch.device:
     """`device` when given, else the device of the first tensor among
     `like`, else the current CUDA device; raises when that is needed
     and there is no card."""
+    if isinstance(device, torch.device):
+        return device
     if device is not None:
         return torch.device(device)
     for a in like:

@@ -1,7 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels of the fused Monte-Carlo +
+// Hand-written Hopper (sm_90a) kernel of the fused Monte-Carlo +
 // chi-square main path.  Plain C interface, bound with ctypes
-// (gokalman_tpu_torch/ops/_build.py); plain PyTorch versions of both
-// kernels live in gokalman_tpu_torch/ops/fused_mc.py and ops/philox.py.
+// (gokalman_tpu_torch/ops/_build.py); its plain PyTorch version lives in
+// gokalman_tpu_torch/ops/fused_mc.py and ops/philox.py.
 //
 // K1 fused_mc_kernel replaces gokalman_tpu/ops/pallas_mc.py:_build
 //    (kernel_body, the pallas_call of `run`).  One thread per ensemble
@@ -36,35 +36,30 @@
 //      after the chunk the block combines the warps of each step with
 //      Chan's formula and writes C consecutive steps per partials row.
 //      Two barriers per chunk, none per step.
-//    - F, L_q, H, L_R, x0, L0 and the Philox round keys (computed on the
-//      host from the seed) sit in the __grid_constant__ parameter struct,
-//      so they are constant-bank operands.  The NEES/NIS weights are
-//      upper triangles with the off-diagonal entries pre-summed
-//      (P_ij + P_ji), so a quadratic form costs n(n+1)/2 + n FMAs.
-//    - Box-Muller's square root is the hardware approximation: its
-//      argument, -2 ln u1 with u1 in [2^-25, 1 - 2^-25], is never 0, a
-//      denormal or infinite, so the IEEE sqrtf slow-path call is dead.
+//    - F, L_q, H, L_R, x0, L0 and the Philox round keys (built from the
+//      seed by the launch function) sit in the __grid_constant__
+//      parameter struct, so they are constant-bank operands.  The
+//      NEES/NIS weights are upper triangles with the off-diagonal
+//      entries pre-summed (P_ij + P_ji), so a quadratic form costs
+//      n(n+1)/2 + n FMAs.
+//    - Box-Muller's square root is the hardware approximation
+//      (philox.cuh:box_muller), so the IEEE sqrtf slow-path call is gone.
 //    With 256 threads a block and at most 64 KB of shared memory, three
 //    blocks fit on an SM: at S = 98,304 all 384 blocks are resident.
 //
-// K2 sample_normals_kernel replaces gokalman_tpu/ops/pallas_mc.py:
-//    sample_normals_pallas.  Thread i writes normals 4i..4i+3 from the
-//    counter (i, 0, 0, 0): the same draws as K1's first initial-state
-//    group of member i, so K2's statistics are K1's generator's.  Per 16
-//    bytes written it does one Philox call and two Box-Muller pairs, so
-//    it is arithmetic-bound at scale; at 524,288 draws (~2 us on an H100)
-//    launch latency dominates.
-//
-// Random numbers: Philox4x32-10 keyed by the 64-bit seed, counter
-// (member, draw, group, 0) with draw 0 for the initial state and t + 1
-// for step t.  K1's member word is the global member index,
+// Random numbers (philox.cuh): Philox4x32-10 keyed by the 64-bit seed,
+// counter (member, draw, group, 0) with draw 0 for the initial state and
+// t + 1 for step t.  K1's member word is the global member index,
 // member_offset + the thread's index in the launch, so the ranks of a
 // sharded run (parallel/mesh.py) draw the members of one unsharded run.
 // This replaces the TPU kernel's prng_seed(seed + tile_id), under which
-// neighbouring tiles and devices shared streams.
+// neighbouring tiles and devices shared streams.  The launch function
+// builds the round keys from the seed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "philox.cuh"
 
 #ifndef KBLOCK
 #define KBLOCK 256
@@ -72,113 +67,9 @@
 
 namespace {
 
-constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
-constexpr int PHILOX_ROUNDS = 10;
-// 1/sqrt(6 + (1 - 2^-16)/12): unit variance for popcount24 + dither.
-constexpr float CLT_SCALE = 0.40544246941340006f;
 constexpr int WARPS = KBLOCK / 32;
 // Shared memory one K1 block may take: three fit in an SM's 227 KB.
 constexpr int SMEM_BUDGET = 64 * 1024;
-
-// Philox4x32-10 round keys: k0 of round r at [r], k1 at [ROUNDS + r].
-// The host builds them from the seed (ops/philox.py:key_schedule); both
-// kernels take them by value, as constant-bank operands.
-struct KeySchedule {
-  uint32_t k[2 * PHILOX_ROUNDS];
-};
-
-KeySchedule keys_from_host(const uint32_t* keys_host) {
-  KeySchedule ks;
-  for (int i = 0; i < 2 * PHILOX_ROUNDS; ++i) ks.k[i] = keys_host[i];
-  return ks;
-}
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, const KeySchedule& ks) {
-#pragma unroll
-  for (int r = 0; r < PHILOX_ROUNDS; ++r) {
-    const uint32_t lo0 = PHILOX_M0 * c.x, hi0 = __umulhi(PHILOX_M0, c.x);
-    const uint32_t lo1 = PHILOX_M1 * c.z, hi1 = __umulhi(PHILOX_M1, c.z);
-    c = make_uint4(hi1 ^ c.y ^ ks.k[r], lo1,
-                   hi0 ^ c.w ^ ks.k[PHILOX_ROUNDS + r], lo0);
-  }
-  return c;
-}
-
-// (cos 2 pi u, sin 2 pi u), u in [0, 1): pallas_mc.py:_sincos_turns.
-__device__ __forceinline__ void sincos_turns(float u, float& c, float& s) {
-  const float t4 = 4.0f * u;
-  const float q = floorf(t4);
-  const float x = t4 - q;
-  const float x2 = x * x;
-  const float sp = x * (1.5707963257f + x2 * (-0.6459638093f
-                   + x2 * (0.0796899578f + x2 * (-0.0046740125f
-                   + x2 * 0.0001515384f))));
-  const float cp = 1.0f + x2 * (-1.2336986638f + x2 * (0.2536513764f
-                   + x2 * (-0.0208101642f + x2 * 0.0008574517f)));
-  const int qi = static_cast<int>(q);
-  const bool swap = (qi & 1) == 1;
-  const float c0 = swap ? sp : cp;
-  const float s0 = swap ? cp : sp;
-  c = (qi == 1 || qi == 2) ? -c0 : c0;
-  s = (qi == 2 || qi == 3) ? -s0 : s0;
-}
-
-__device__ __forceinline__ float sqrt_approx(float x) {
-  float y;
-  asm("sqrt.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Both branches of one Box-Muller pair: pallas_mc.py:_normal_pair.
-__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
-                                           float& a, float& b) {
-  const float u1 = static_cast<float>(b1 & 0xFFFFFFu) * 0x1p-24f + 0x1p-25f;
-  const float u2 = static_cast<float>(b2 & 0xFFFFFFu) * 0x1p-24f;
-  const float r = sqrt_approx(-2.0f * logf(u1));
-  float c, s;
-  sincos_turns(u2, c, s);
-  a = r * c;
-  b = r * s;
-}
-
-// Popcount-CLT normal from one word: pallas_mc.py:_normal_clt.
-__device__ __forceinline__ float clt_normal(uint32_t bits) {
-  const int pc = __popc((bits >> 8) & 0xFFFFFFu);
-  const float dither =
-      (static_cast<float>(bits & 0xFFu) + 0.5f) * (1.0f / 256.0f) - 0.5f;
-  return (static_cast<float>(pc) - 12.0f + dither) * CLT_SCALE;
-}
-
-// COUNT normals of one member's draw index `draw` (ops/philox.py:normals).
-template <int COUNT, bool FAST>
-__device__ __forceinline__ void draw_normals(uint32_t member, uint32_t draw,
-                                             const KeySchedule& ks,
-                                             float (&out)[COUNT]) {
-  constexpr int WORDS = FAST ? COUNT : 2 * ((COUNT + 1) / 2);
-  constexpr int GROUPS = (WORDS + 3) / 4;
-  uint32_t w[GROUPS * 4];
-#pragma unroll
-  for (int g = 0; g < GROUPS; ++g) {
-    const uint4 r = philox4x32_10(
-        make_uint4(member, draw, static_cast<uint32_t>(g), 0u), ks);
-    w[4 * g] = r.x;
-    w[4 * g + 1] = r.y;
-    w[4 * g + 2] = r.z;
-    w[4 * g + 3] = r.w;
-  }
-  if constexpr (FAST) {
-#pragma unroll
-    for (int i = 0; i < COUNT; ++i) out[i] = clt_normal(w[i]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < (COUNT + 1) / 2; ++j) {
-      float a, b;
-      box_muller(w[2 * j], w[2 * j + 1], a, b);
-      out[2 * j] = a;
-      if (2 * j + 1 < COUNT) out[2 * j + 1] = b;
-    }
-  }
-}
 
 // Transpose butterfly over the warp, level LVL (lane bit 16 >> LVL):
 // while a lane holds more than one value it keeps half and sends half,
@@ -548,38 +439,7 @@ fused_mc_kernel(const float* __restrict__ path,
   }
 }
 
-template <bool FAST>
-__global__ void __launch_bounds__(KBLOCK)
-sample_normals_kernel(float* __restrict__ out, long long count,
-                      const __grid_constant__ KeySchedule keys) {
-  const long long i = static_cast<long long>(blockIdx.x) * KBLOCK + threadIdx.x;
-  const long long base = 4 * i;
-  if (base >= count) return;
-  float z[4];
-  draw_normals<4, FAST>(static_cast<uint32_t>(i), 0u, keys, z);
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    if (base + l < count) out[base + l] = z[l];
-  }
-}
-
 }  // namespace
-
-// `keys_host`: the 20 round keys (host array, passed by value).
-extern "C" int sample_normals_launch(float* out, long long count,
-                                     const uint32_t* keys_host, int fast_rng,
-                                     void* stream) {
-  const long long threads = (count + 3) / 4;
-  const dim3 grid(static_cast<unsigned>((threads + KBLOCK - 1) / KBLOCK));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const KeySchedule keys = keys_from_host(keys_host);
-  if (fast_rng) {
-    sample_normals_kernel<true><<<grid, KBLOCK, 0, s>>>(out, count, keys);
-  } else {
-    sample_normals_kernel<false><<<grid, KBLOCK, 0, s>>>(out, count, keys);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // K1 is specialised per build: -DKN=<n> -DKP=<p> -DKTV=<0|1> -DKCTRL=<0|1>.
 #ifdef KN
@@ -590,16 +450,16 @@ extern "C" int fused_mc_fixed_len() { return KLayout::FIXED; }
 extern "C" int fused_mc_chunk_steps() { return KLayout::C; }
 extern "C" int fused_mc_smem_bytes() { return KLayout::SMEM; }
 
-// `fixed_host` (fused_mc_fixed_len() floats) and `keys_host` (the 20
-// round keys) are host arrays, passed to the kernel by value: they land
-// in the constant bank.
+// `fixed_host` (fused_mc_fixed_len() floats, a host array) and the
+// round keys of `seed` are passed to the kernel by value: they land in
+// the constant bank.
 extern "C" int fused_mc_launch(const float* path, const float* fixed_host,
-                               const uint32_t* keys_host, int steps,
-                               int samples, uint32_t member_offset,
-                               int fast_rng, float* partials, void* stream) {
+                               uint64_t seed, int steps, int samples,
+                               uint32_t member_offset, int fast_rng,
+                               float* partials, void* stream) {
   Params<KLayout::FIXED> prm;
   for (int i = 0; i < KLayout::FIXED; ++i) prm.v[i] = fixed_host[i];
-  prm.keys = keys_from_host(keys_host);
+  prm.keys = key_schedule(seed);
   auto kernel = fast_rng ? fused_mc_kernel<KN, KP, KTV != 0, KCTRL != 0, true>
                          : fused_mc_kernel<KN, KP, KTV != 0, KCTRL != 0, false>;
   if (KLayout::SMEM > 48 * 1024) {

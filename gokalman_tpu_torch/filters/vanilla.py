@@ -189,7 +189,7 @@ def run(model: Model, state: State, measurements=None, controls=None,
                     # (the Go SetNoise swap replaces the sampler too).
                     z = torch.randn(r_k.shape[-1], generator=generator,
                                     dtype=r_k.dtype, device=r_k.device)
-                    v = torch.linalg.cholesky(r_k) @ z
+                    v = linalg.chol_lower(r_k) @ z
                 else:
                     v = measurement_sample(model.noise, generator)
         state, est = step(model, state, meas, ctrl, w, w2, v,

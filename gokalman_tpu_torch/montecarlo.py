@@ -101,7 +101,7 @@ def monte_carlo(model: vanilla.Model, state0: vanilla.State, samples: int,
     x = state0.x.expand(samples, n)
     if init_spread:
         z0 = randn(samples, n) if z0 is None else z0
-        x = x + z0 @ torch.linalg.cholesky(state0.p).T
+        x = x + z0 @ linalg.chol_lower(state0.p).T
 
     cov = state0.p
     xs, ys, p_preds, gains = [], [], [], []

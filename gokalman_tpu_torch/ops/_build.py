@@ -3,9 +3,10 @@
 Each `csrc/*.cu` file has a plain C interface.  `load` compiles it with
 nvcc for sm_90a into a shared library under `build/kernels/` at the
 repository root and loads it with ctypes.  The library is cached by a
-hash of the source, the flags and the specialisation defines, on disk
-and in the process, so a specialisation builds once (a few seconds) at
-its first use.  Nothing here runs at import time.
+hash of the source, the shared headers (`csrc/*.cuh`), the flags and
+the specialisation defines, on disk and in the process, so a
+specialisation builds once (a few seconds) at its first use.  Nothing
+here runs at import time.
 
 Callers set `argtypes` on the entry points: pointers and the stream are
 `ctypes.c_void_p`, so ctypes does not cut them to 32 bits.  Every C
@@ -51,6 +52,8 @@ def load(source: str, defines: Dict[str, int]) -> ctypes.CDLL:
     src = CSRC / source
     flags = list(NVCC_FLAGS) + [f"-D{k}={v}" for k, v in sorted(defines.items())]
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update("\0".join(flags).encode())
     tag = digest.hexdigest()[:16]
     if tag in _loaded:

@@ -147,7 +147,7 @@ def _masked_schedule(model: vanilla.Model, hs, rs, meas_masks):
         m = torch.as_tensor(meas_masks, device=like.device).to(like.dtype)
         hs = hs * m[..., :, None]
         rs = rs * (m[..., :, None] * m[..., None, :]) + torch.diag_embed(1.0 - m)
-    lrs = torch.linalg.cholesky(rs)
+    lrs = linalg.chol_lower(rs)
     if meas_masks is not None:
         lrs = lrs * m[..., :, None]
     return hs, rs, lrs

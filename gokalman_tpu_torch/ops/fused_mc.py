@@ -5,8 +5,9 @@ Port of gokalman_tpu/ops/pallas_mc.py.  One launch of K1
 workload of SURVEY.md §3.2: truth propagation, the noiseless replay
 filter, the NEES/NIS quadratic forms and the per-step block sums, with
 one thread per ensemble member and the states in registers.  K2
-(`sample_normals_kernel`) draws normals from the same generators so
-their statistics can be tested apart from the filter averaging.
+(`csrc/sample_normals.cu:sample_normals_kernel`) draws normals from the
+same generators so their statistics can be tested apart from the filter
+averaging.
 
 The seed-independent per-step path (gains, NEES/NIS weights, masked
 schedule, control increments) comes from `precompute_path`;
@@ -16,7 +17,9 @@ schedule, control increments) comes from `precompute_path`;
 Dispatch.  Each wrapper launches its kernel when its tensors lie on a
 CUDA device, and raises if the build or the launch fails; it takes the
 plain PyTorch version only for tensors on the CPU.  `launches` counts
-kernel launches, one per launch, nowhere else.
+kernel launches, one per launch, nowhere else.  A launch passes the
+64-bit seed to C, which builds the Philox round keys, and enters the
+device's context only when it is not the current one (`_launch`).
 
 Path row layout per step (float32): K [n,p], the NEES weights P⁺⁻¹
 and the NIS weights S⁻¹ as packed upper triangles (row-major, the
@@ -45,7 +48,8 @@ from .ensemble import ChiSquareResult, covariance_path, pool_moments
 
 BLOCK = 256  # ensemble members per CUDA block (KBLOCK in the kernel)
 MAX_N, MAX_P = 16, 8  # register-sane bound of the per-thread kernel
-SOURCE = "fused_mc.cu"
+SOURCE = "fused_mc.cu"  # K1
+K2_SOURCE = "sample_normals.cu"
 GENERATORS = {"box_muller": False, "clt": True}
 
 #: Kernel launches since the last `reset_launches()`, per kernel.
@@ -251,7 +255,7 @@ def load_fused_mc(n: int, p: int, tv: bool, ctrl: bool):
     lib = _build.load(SOURCE, {"KN": n, "KP": p, "KTV": int(tv),
                                "KCTRL": int(ctrl), "KBLOCK": BLOCK})
     lib.fused_mc_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_int, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]
     for fn in ("launch", "row_len", "fixed_len", "chunk_steps", "smem_bytes"):
@@ -260,6 +264,19 @@ def load_fused_mc(n: int, p: int, tv: bool, ctrl: bool):
     if (lib.fused_mc_row_len(), lib.fused_mc_fixed_len()) != (lay["row"], lay["fixed"]):
         raise RuntimeError("csrc/fused_mc.cu Layout disagrees with _layout")
     return lib
+
+
+def _launch(fn, device: torch.device, *args) -> int:
+    """`fn(*args, stream)`, a C launch function, on `device`'s current
+    stream; the device is made current only if it is not already (the
+    context switch would cost every call several microseconds)."""
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
@@ -278,13 +295,9 @@ def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
     steps = rows.shape[0]
     out = torch.empty((_blocks(samples), 2 + 2 * n, steps),
                       dtype=torch.float32, device=rows.device)
-    keys = philox.key_schedule(seed)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_mc_launch(rows.data_ptr(), fixed_host.ctypes.data,
-                                  keys.ctypes.data, steps, samples,
-                                  member_offset, int(fast_rng),
-                                  out.data_ptr(), stream)
+    err = _launch(lib.fused_mc_launch, rows.device, rows.data_ptr(),
+                  fixed_host.ctypes.data, philox.seed_bits(seed), steps,
+                  samples, member_offset, int(fast_rng), out.data_ptr())
     if err:
         raise RuntimeError(f"fused_mc kernel launch failed: CUDA error {err}")
     launches["fused_mc"] += 1
@@ -408,14 +421,22 @@ def mc_chi_square_fused_ref(model: vanilla.Model, state0: vanilla.State,
 
 @functools.lru_cache(maxsize=None)
 def load_sample_normals():
-    """Build (at first use) and load K2."""
+    """Build (at first use) and load K2; sets its persistent grids (the
+    occupancy API's blocks per SM times the SMs of the current
+    device)."""
     from . import _build
 
-    lib = _build.load(SOURCE, {"KBLOCK": BLOCK})
+    lib = _build.load(K2_SOURCE, {})
     lib.sample_normals_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint64, ctypes.c_int,
         ctypes.c_void_p]
-    lib.sample_normals_launch.restype = ctypes.c_int
+    lib.philox_key_schedule.argtypes = [ctypes.c_uint64, ctypes.c_void_p]
+    lib.philox_key_schedule.restype = None
+    for fn in ("launch", "init", "grid", "threads"):
+        getattr(lib, f"sample_normals_{fn}").restype = ctypes.c_int
+    err = lib.sample_normals_init()
+    if err:
+        raise RuntimeError(f"sample_normals grid set-up failed: CUDA error {err}")
     return lib
 
 
@@ -440,7 +461,8 @@ def sample_normals(count: int, seed: int, generator: str = "box_muller",
     """Draw `count` (approximately) standard normals with one of the
     kernels' generators: "box_muller" (exact) or "clt" (the fast_rng
     path).  K2 on a CUDA device (the default), the plain version on
-    the CPU (pallas_mc.py:sample_normals_pallas)."""
+    the CPU (pallas_mc.py:sample_normals_pallas).  The kernel's float4
+    stores need a 16-byte-aligned output, which `torch.empty` gives."""
     fast = _generator_flag(generator)
     if not 0 < count < 2**33:
         raise ValueError(f"count must be in (0, 2**33), got {count}")
@@ -449,13 +471,9 @@ def sample_normals(count: int, seed: int, generator: str = "box_muller",
         return sample_normals_ref(count, seed, generator, device)
     if device.type != "cuda":
         raise ValueError(f"no sample_normals path for device {device}")
-    lib = load_sample_normals()
+    launch = load_sample_normals().sample_normals_launch
     out = torch.empty(count, dtype=torch.float32, device=device)
-    keys = philox.key_schedule(seed)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sample_normals_launch(out.data_ptr(), count, keys.ctypes.data,
-                                        int(fast), stream)
+    err = _launch(launch, device, out.data_ptr(), count, philox.seed_bits(seed), int(fast))
     if err:
         raise RuntimeError(f"sample_normals kernel launch failed: CUDA error {err}")
     launches["sample_normals"] += 1

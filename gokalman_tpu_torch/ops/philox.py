@@ -1,19 +1,21 @@
 """Plain PyTorch versions of the kernels' random-number device functions.
 
-`csrc/fused_mc.cu` draws its noise from a counter-based Philox4x32-10
-generator (Salmon et al., SC'11; the Random123 constants).  This module
-computes the same bits with torch integer ops, so the kernels' plain
-versions see the same noise as the kernels, on the CPU and on a CUDA
-device alike.
+The kernels (`csrc/philox.cuh`) draw their noise from a counter-based
+Philox4x32-10 generator (Salmon et al., SC'11; the Random123
+constants).  This module computes the same bits with torch integer
+ops, so the kernels' plain versions see the same noise as the kernels,
+on the CPU and on a CUDA device alike.
 
 torch has no uint32 arithmetic to rely on, and Philox's 32x32-bit
 products overflow int64.  Words are kept as int64 tensors holding
 values in [0, 2**32), and each product is split at 16 bits of the
 constant (see `_mulhilo`).
 
-Keys.  The seed's two 32-bit words are round 0's key; Random123 bumps
-them by (W0, W1) each round.  `key_schedule` lists all ten rounds'
-keys, which both kernels take from the host as launch parameters.
+Keys.  The seed, taken as 64 bits in two's complement (`seed_bits`),
+gives round 0's key as its two 32-bit words; Random123 bumps them by
+(W0, W1) each round.  `key_schedule` lists all ten rounds' keys, as the
+kernels' launch functions build them in C (csrc/philox.cuh) from the
+64-bit seed.
 
 Counters.  Member m's draws at step t use counter (m, t + 1, g, 0) for
 draw group g = 0, 1, ...; its initial-state draws use (m, 0, g, 0).
@@ -35,6 +37,7 @@ import torch
 M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
 MASK32 = 0xFFFFFFFF
+MASK64 = 0xFFFFFFFFFFFFFFFF
 ROUNDS = 10
 INIT_DRAW = 0  # counter word 1 of the initial-state draws; step t uses t + 1
 
@@ -42,9 +45,15 @@ INIT_DRAW = 0  # counter word 1 of the initial-state draws; step t uses t + 1
 CLT_SCALE = (6.0 + (1.0 - 1.0 / 256.0**2) / 12.0) ** -0.5
 
 
+def seed_bits(seed: int) -> int:
+    """The seed as the unsigned 64-bit word the kernels take: its low 64
+    bits in two's complement (-1 is 2**64 - 1)."""
+    return int(seed) & MASK64
+
+
 def key_words(seed: int):
-    """The two 32-bit key words of a (64-bit, two's complement) seed."""
-    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    """The two 32-bit key words (low, high) of `seed_bits(seed)`."""
+    s = seed_bits(seed)
     return s & MASK32, s >> 32
 
 
@@ -57,7 +66,7 @@ def round_keys(key):
 
 def key_schedule(seed: int) -> np.ndarray:
     """uint32 [2·ROUNDS]: every round's k0 word, then every round's k1
-    word, of the seed's key (csrc/fused_mc.cu:KeySchedule)."""
+    word, of the seed's key (csrc/philox.cuh:KeySchedule)."""
     k0s, k1s = zip(*round_keys(key_words(seed)))
     return np.array(k0s + k1s, dtype=np.uint32)
 

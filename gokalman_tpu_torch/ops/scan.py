@@ -26,7 +26,10 @@ def scan(step: Callable, carry, xs, length: int = None, *, graph: bool = True):
     where x_t is row t of every tensor leaf of `xs` (None and other
     non-tensor leaves pass through as they are; `xs=None` with `length`
     gives x_t = None).  Returns (final carry, ys) with the y_t stacked
-    along a new leading axis, in y's pytree structure.
+    along a new leading axis, in y's pytree structure.  A scan of length
+    0 returns the carry and [0, ...] outputs (`_empty_ys`, which runs the
+    step once to learn their shapes), so a step must change nothing but
+    its carry: no generator it draws from, no tensor it closes over.
 
     With CUDA tensors and `graph=True` the step runs as one CUDA graph:
     `step` is warmed up once on a side stream, then captured reading its
@@ -42,10 +45,12 @@ def scan(step: Callable, carry, xs, length: int = None, *, graph: bool = True):
     steps = rows[0].shape[0] if rows else length
     if steps is None:
         raise ValueError("scan needs tensor xs or a length")
+    if steps == 0:
+        return carry, _empty_ys(step, carry, flat_xs, xs_spec)
     leaves = [a for a in pytree.tree_flatten(carry)[0] + flat_xs
               if isinstance(a, torch.Tensor)]
     on_card = bool(leaves) and leaves[0].device.type == "cuda"
-    if graph and on_card and steps > 0:
+    if graph and on_card:
         return _graph_scan(step, carry, flat_xs, xs_spec, steps, leaves[0].device)
     ys = []
     for t in range(steps):
@@ -53,13 +58,28 @@ def scan(step: Callable, carry, xs, length: int = None, *, graph: bool = True):
             [a[t] if isinstance(a, torch.Tensor) else a for a in flat_xs], xs_spec)
         carry, y = step(carry, x_t)
         ys.append(y)
-    if not ys:
-        raise ValueError("scan of length 0")
     flat_ys = [pytree.tree_flatten(y)[0] for y in ys]
     y_spec = pytree.tree_flatten(ys[0])[1]
     stacked = [torch.stack(col) if isinstance(col[0], torch.Tensor) else col[0]
                for col in zip(*flat_ys)]
     return carry, pytree.tree_unflatten(stacked, y_spec)
+
+
+def _empty_ys(step, carry, flat_xs, xs_spec):
+    """The [0, ...] outputs of a scan of length 0, as `lax.scan` gives
+    them: the step runs once, on clones of the carry and on zero rows,
+    only to learn the outputs' shapes and dtypes; its results are
+    dropped, so the caller's carry and xs are left as they were (what
+    else the step changes, `scan`'s contract rules out)."""
+    clone = lambda a: a.clone() if isinstance(a, torch.Tensor) else a
+    x_0 = pytree.tree_unflatten(
+        [a.new_zeros(a.shape[1:]) if isinstance(a, torch.Tensor) else a for a in flat_xs],
+        xs_spec)
+    _, y = step(pytree.tree_map(clone, carry), x_0)
+    flat_y, y_spec = pytree.tree_flatten(y)
+    return pytree.tree_unflatten(
+        [a.new_empty((0,) + a.shape) if isinstance(a, torch.Tensor) else a for a in flat_y],
+        y_spec)
 
 
 def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
@@ -97,6 +117,11 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
         cuda_graph.capture_begin()
         try:
             new_c, (ys, _) = body()
+            # The outputs first: a y_t that is the incoming carry, or a
+            # view of it, must be stored before the carry is overwritten.
+            for buf, y in zip(out, ys):
+                if isinstance(buf, torch.Tensor):
+                    buf.index_copy_(0, counter, y.unsqueeze(0))
             # Clone what aliases a carry buffer before any buffer is written.
             new_c = [new.clone() if isinstance(new, torch.Tensor) and any(
                 isinstance(b, torch.Tensor) and new.untyped_storage().data_ptr()
@@ -105,9 +130,6 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
             for buf, new in zip(static_c, new_c):
                 if isinstance(buf, torch.Tensor):
                     buf.copy_(new)
-            for buf, y in zip(out, ys):
-                if isinstance(buf, torch.Tensor):
-                    buf.index_copy_(0, counter, y.unsqueeze(0))
             counter.add_(1)
         finally:
             cuda_graph.capture_end()
