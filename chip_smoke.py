@@ -37,10 +37,15 @@ square-root, SRIF, hybrid and batch filters and the smoothers in f64,
 each against its reference (and `vanilla.run`'s per-step R draws with
 no host sync); and bench_od.py's orbit-determination scenario at full
 size (the 8,640-step truth on the card, the 5,120-step arc) through the
-port's OD runners, eight of bench_od.py's rows each inside its accuracy
-gate with its OD steps per second (one call after a warm-up), the
-CUDA-graph replay held to the eager loop, no host sync per step, and
-kernels, operations and device busy share per step.  Every phase
+port's OD runners, bench_od.py's nine rows and the UKF's line each
+inside its accuracy gate with its OD steps per second (one call after a
+warm-up), the CUDA-graph replay held to the eager loop, no host sync per
+step, and kernels, operations and device busy share per step.  Then the
+nonlinear and ensemble filters (UKF, SR-UKF, quadrature, EnKF / ETKF /
+EnKS, particle + FFBS, RBPF) in f64 on small systems, each held card
+against CPU and graph against eager, with its syncs and kernels per
+step; and bench.py's Lorenz-96 EnKF leg at N = 1,024 x 300 cycles in
+f32, inside bench.py's RMSE gate, with its time per run.  Every phase
 raises on failure; there is no CPU or plain-version fallback.  The
 last line of standard output is one JSON object with the device; the
 line before it lists each kernel's launches on the counted paths, its
@@ -1026,9 +1031,10 @@ def synchronizing_calls(fn, warm=True):
 
 def phase_scan(torch, device, steps=64):
     """[scan]: `ops.scan.scan` on the card with a step that emits its
-    incoming carry and a slice of it as outputs.  The CUDA-graph replay
-    must equal the loop bitwise, and y_0 must be the initial carry (the
-    graph stores the outputs before it overwrites the carry).  A scan of
+    incoming carry and a slice of it as outputs, forward and with
+    `reverse=True`.  The CUDA-graph replay must equal the loop bitwise,
+    and the first step's output must be the initial carry (the graph
+    stores the outputs before it overwrites the carry).  A scan of
     length 0 gives [0, ...] outputs on both paths."""
     from torch.utils import _pytree as pytree
 
@@ -1044,20 +1050,24 @@ def phase_scan(torch, device, steps=64):
     xs = torch.randn(steps, 5, generator=gen, dtype=f64, device=device)
     carry0 = (torch.randn(5, generator=gen, dtype=f64, device=device),
               torch.zeros((), dtype=f64, device=device))
-    runs = {graph: scan(step, carry0, xs, graph=graph) for graph in (True, False)}
-    torch.cuda.synchronize()
-    leaves = {g: pytree.tree_leaves(r) for g, r in runs.items()}
-    check(all(torch.equal(a, b) for a, b in zip(leaves[True], leaves[False])),
-          "scan: the CUDA graph differs from the loop on a step that emits its carry")
-    check(torch.equal(runs[True][1][0][0], carry0[0]),
-          "scan: y_0 of the graph is not the initial carry")
+    for reverse in (False, True):
+        runs = {graph: scan(step, carry0, xs, graph=graph, reverse=reverse)
+                for graph in (True, False)}
+        torch.cuda.synchronize()
+        leaves = {g: pytree.tree_leaves(r) for g, r in runs.items()}
+        check(all(torch.equal(a, b) for a, b in zip(leaves[True], leaves[False])),
+              f"scan (reverse={reverse}): the CUDA graph differs from the loop on a step "
+              f"that emits its carry")
+        check(torch.equal(runs[True][1][0][-1 if reverse else 0], carry0[0]),
+              f"scan (reverse={reverse}): the graph's first output is not the initial carry")
     empty = {g: scan(step, carry0, xs[:0], graph=g)[1] for g in (True, False)}
     check(all(tuple(y.shape) == (0,) + tuple(w.shape[1:])
               for g in empty for y, w in zip(pytree.tree_leaves(empty[g]), leaves[g][2:])),
           "scan: a scan of length 0 gave outputs of the wrong shape")
     log(f"[scan] {steps} steps f64 on the card, a step emitting its incoming carry and a "
-        f"slice of it: CUDA graph bitwise equal to the loop, y_0 the initial carry; "
-        f"length 0 gives [0, ...] outputs on both paths")
+        f"slice of it, forward and reverse=True: CUDA graph bitwise equal to the loop, the "
+        f"first step's output the initial carry; length 0 gives [0, ...] outputs on both "
+        f"paths")
 
 
 def phase_smoother(gt, torch, device, card, shapes=SMOOTHER_SHAPES):
@@ -1417,6 +1427,18 @@ def od_gate_rms(res, truth, has, tail=False):
     return pos, vel
 
 
+def od_late_mean_errors(res, truth, has):
+    """tests/test_od_ukf.py:39-47: the mean position / velocity error
+    norms over the second half of the measurement steps."""
+    import numpy as np
+
+    err = res.est_states.cpu().numpy() - truth[:res.est_states.shape[0]].cpu().numpy()
+    idx = np.nonzero(has[:err.shape[0]].cpu().numpy())[0]
+    late = idx[len(idx) // 2:]
+    return (float(np.sqrt((err[late, :3] ** 2).sum(1)).mean()),
+            float(np.sqrt((err[late, 3:6] ** 2).sum(1)).mean()))
+
+
 def od_time(torch, fn, steps):
     """bench_od.py:96-120's timing of one call: the host-clock time of
     `fn(steps)`, ended by reading the last estimate back, after one
@@ -1431,10 +1453,11 @@ def od_time(torch, fn, steps):
 
 
 def od_rows(gt, torch, device, s):
-    """The eight bench_od.py rows the port runs, as {name: (runner
+    """bench_od.py's nine rows and a `ukf_od` line, as {name: (runner
     closure over `steps` and `graph`, truth, tail, pos gate, vel gate,
     dtype, satellites)}: the first `steps` of the arc, `graph` as in
-    ops.scan.scan."""
+    ops.scan.scan.  A tail of "late mean" is tests/test_od_ukf.py's gate
+    (`od_late_mean_errors`)."""
     from gokalman_tpu_torch import od
     from gokalman_tpu_torch.dynamics import propagate, stations
 
@@ -1462,6 +1485,17 @@ def od_rows(gt, torch, device, s):
     x0s = s["x0_ref"].to(f32)[None, :] + perts
     bias_true = torch.tensor([1e-2, -1.5e-2, 5e-3], dtype=torch.float64, device=device)
     bias_sigmas = torch.full((3,), 2e-2, dtype=torch.float64, device=device)
+    # The derivative-free rows: bench_od.py:304-315's EnKF (96 members,
+    # awgn(1e-12 I, R), its p0_enkf, inflation 1.01, f32, from x0_pert),
+    # and the UKF from x0_pert with tests/test_od_ukf.py's P0 (the same
+    # diagonal) and noiseless(0, R), in f64.
+    p0_fs = torch.diag(torch.tensor([1.0, 1.0, 1.0, 1e-5, 1e-5, 1e-5], dtype=torch.float64,
+                                    device=device))
+    enkf_noise32 = gt.noise.awgn(1e-12 * torch.eye(6, dtype=f32, device=device),
+                                 s["r"].to(f32))
+    ukf_noise = gt.noise.noiseless(torch.zeros(6, 6, dtype=torch.float64, device=device),
+                                   s["r"])
+    ukf_pos_gate = float(torch.linalg.vector_norm((s["x0_pert"] - s["x0_ref"])[:3])) / 20
     return {
         "srif": (lambda n, graph=True: od.run_srif_od(
             s["x0_small"], s["p0"], noise, cut(ms, n), OD_DT, stations_list=sts,
@@ -1496,6 +1530,14 @@ def od_rows(gt, torch, device, s):
             s["x0_small"], s["p0"], noise, cut(ms, n), OD_DT, bias_sigmas=bias_sigmas,
             stations_list=sts, truth0=s["x0_ref"], true_biases=bias_true, graph=graph,
             **common), s["truth"], True, 1e-1, 1e-4, "float64", None),
+        "enkf_od_f32": (lambda n, graph=True: od.run_enkf_od(
+            s["x0_pert"].to(f32), p0_fs.to(f32), enkf_noise32, cut(ms32, n), OD_DT, n_ens=96,
+            stations_list=sts32, inflation=1.01,
+            generator=torch.Generator(device=device).manual_seed(SEED), graph=graph,
+            **common), s["truth"], True, 3e-1, 5e-4, "float32", None),
+        "ukf_od": (lambda n, graph=True: od.run_ukf_od(
+            s["x0_pert"], p0_fs, ukf_noise, cut(ms, n), OD_DT, stations_list=sts, graph=graph,
+            **common), s["truth"], "late mean", ukf_pos_gate, 1e-4, "float64", None),
     }
 
 
@@ -1563,11 +1605,11 @@ def op_work(fn):
     return counter.flops
 
 
-def od_parity(torch, fn, steps):
+def od_parity(torch, fn, steps, tol=1e-12):
     """The graph replay against the eager loop on the card over `steps`:
-    ("bitwise", 0) when every output is equal, else ("1e-12 relative",
-    worst relative difference), which must hold; and the host-clock
-    seconds of each call (synchronized)."""
+    ("bitwise", 0) when every output is equal, else ("within `tol`
+    relative", worst relative difference), which must hold; and the
+    host-clock seconds of each call (synchronized)."""
     from torch.utils import _pytree as pytree
 
     secs = []
@@ -1585,8 +1627,8 @@ def od_parity(torch, fn, steps):
         return "bitwise", 0.0, secs
     worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
                 for a, b in pairs)
-    check(worst <= 1e-12, f"graph replay differs from the eager loop by {worst:.3g} relative")
-    return "1e-12 relative", worst, secs
+    check(worst <= tol, f"graph replay differs from the eager loop by {worst:.3g} relative")
+    return f"within {tol:g} relative", worst, secs
 
 
 def phase_od(gt, torch, device, card):
@@ -1617,6 +1659,11 @@ def phase_od(gt, torch, device, card):
         if sats:
             finite = bool(torch.isfinite(res.est_states).all())
             rec.update(satellites=sats, finite=finite, gates_pass=finite)
+        elif tail == "late mean":
+            pos, vel = od_late_mean_errors(res, truth, s["ms"].has_meas)
+            rec.update(pos_late_mean_err_km=pos, vel_late_mean_err_kms=vel,
+                       pos_gate_km=pos_gate, vel_gate_kms=vel_gate,
+                       gates_pass=pos < pos_gate and vel < vel_gate)
         else:
             pos, vel = od_gate_rms(res, truth, s["ms"].has_meas, tail)
             rec.update(pos_rms_km=pos, vel_rms_kms=vel, tail=tail, pos_gate_km=pos_gate,
@@ -1630,8 +1677,9 @@ def phase_od(gt, torch, device, card):
         out[name] = rec
 
     stages.append(("rows", time.perf_counter()))
-    for name in ("srif", "hybrid_ckf"):
-        kind, err, (replay_s, eager_s) = od_parity(torch, rows[name][0], OD_PARITY_STEPS)
+    for name in ("srif", "hybrid_ckf", "ukf_od", "enkf_od_f32"):
+        kind, err, (replay_s, eager_s) = od_parity(
+            torch, rows[name][0], OD_PARITY_STEPS, 1e-5 if rows[name][5] == "float32" else 1e-12)
         log(f"[od parity] {name}: graph replay vs eager loop over {OD_PARITY_STEPS} steps on "
             f"the card: {kind} (max relative difference {err:.3g}); host clock "
             f"{replay_s * 1e3:.1f} ms replayed (capture included) vs {eager_s * 1e3:.1f} ms "
@@ -1649,7 +1697,7 @@ def phase_od(gt, torch, device, card):
               f"{syncs[OD_SYNC_STEPS[1]][:3]}")
     stages.append(("syncs", time.perf_counter()))
     span = OD_COUNT_STEPS[1] - OD_COUNT_STEPS[0]
-    for name in ("srif", "hybrid_ckf", "srif_f32_constellation"):
+    for name in ("srif", "hybrid_ckf", "srif_f32_constellation", "ukf_od", "enkf_od_f32"):
         fn = rows[name][0]
         profs = [launch_profile(lambda: fn(n, False)) for n in OD_COUNT_STEPS]
         if None in profs:
@@ -1695,6 +1743,337 @@ def phase_od(gt, torch, device, card):
     return out
 
 
+def nonlinear_fns(torch):
+    """The [nonlinear] phase's 4-state system, batch-native over leading
+    dims: fx(x[, u]) a damped coupled pendulum step (dt 0.1), hx(x) a
+    range and a sine; the augmented forms carry their noise through."""
+
+    def fx(x, u=None):
+        x0, x1, x2, x3 = (x[..., i] for i in range(4))
+        out = torch.stack([x0 + 0.1 * x1, x1 + 0.1 * (-torch.sin(x0) + 0.1 * x3),
+                           x2 + 0.1 * x3, x3 + 0.1 * (-0.5 * x2 + 0.1 * torch.sin(x0))], -1)
+        return out if u is None else out + 0.05 * u[0]
+
+    def hx(x):
+        return torch.stack([torch.sqrt(x[..., 0] ** 2 + x[..., 2] ** 2 + 1.0),
+                            torch.sin(x[..., 1]) + 0.5 * x[..., 3]], -1)
+
+    return (fx, hx, lambda x, w: fx(x) * (1.0 + 0.1 * w[..., :1]) + w,
+            lambda x, v: hx(x) + v * (1.0 + 0.05 * x[..., :1]))
+
+
+def nonlinear_runners(gt, torch, steps):
+    """{name: fn(device, n, graph)} of every runner of the nonlinear
+    slice on small f64 systems: the first n of `steps` steps, inputs and
+    draws made once on the host (numpy and a CPU generator, seeded) and
+    moved to `device`, so the card and the CPU run the same numbers."""
+    import numpy as np
+
+    from gokalman_tpu_torch.filters import enkf, particle, quadrature, rbpf, srukf, ukf
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED)
+    spd = lambda k, s: (lambda a: s * (a @ a.T + k * np.eye(k)))(rng.standard_normal((k, k)))
+    q, r, p0 = spd(4, 2e-3), spd(2, 2e-2), spd(4, 0.05)
+    x0 = np.array([0.3, -0.2, 0.5, 0.1])
+    host = dict(ys=rng.standard_normal((steps, 2)) * 0.3 + np.array([1.2, 0.2]),
+                us=rng.standard_normal((steps, 1)), masks=np.arange(steps) % 4 != 2,
+                loc_xy=np.clip(1.0 - 0.2 * rng.random((4, 2)), 0.0, 1.0),
+                loc_yy=np.array([[1.0, 0.7], [0.7, 1.0]]))
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = torch.device("cpu")
+    host_draws = dict(
+        enkf=enkf.draws(gen, steps, 64, 4, 2, f64, cpu),
+        particle=particle.draws(gen, steps, 256, 4, f64, cpu),
+        rbpf=rbpf.draws(gen, steps, 128, 2, f64, cpu),
+        z_enkf=torch.randn(64, 4, generator=gen, dtype=f64),
+        z_particle=torch.randn(256, 4, generator=gen, dtype=f64),
+        z_rbpf=torch.randn(128, 2, generator=gen, dtype=f64))
+    fx, hx, aug_fx, aug_hx = nonlinear_fns(torch)
+    q_inv = np.linalg.inv(q)
+    log_norm = -0.5 * (4 * math.log(2 * math.pi) + math.log(np.linalg.det(q)))
+    cache = {}
+
+    def inputs(dev):
+        if dev not in cache:
+            t = lambda a: torch.as_tensor(a, dtype=f64, device=dev)
+            d = {k: t(v) for k, v in host.items() if k != "masks"}
+            d["masks"] = torch.as_tensor(host["masks"], device=dev)
+            d.update({k: pytree_to(v, dev) for k, v in host_draws.items()})
+            d["noise"] = gt.noise.awgn(q, r, dtype=f64, device=dev)
+            d["q_inv"] = t(q_inv)
+            d["rbpf"] = (d["rbpf"], rbpf.new(np.array([0.1, 0.4]), 0.2 * np.eye(2),
+                                             np.zeros(2), np.eye(2),
+                                             np.array([[0.9, 0.1], [0.0, 0.95]]),
+                                             0.01 * np.eye(2), 0.02 * np.eye(2),
+                                             0.05 * np.eye(2), 128, ze=d["z_rbpf"],
+                                             dtype=f64, device=dev))
+            cache[dev] = d
+        return cache[dev]
+
+    def pytree_to(tree, dev):
+        from torch.utils import _pytree as pytree
+        return pytree.tree_map(lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a,
+                               tree)
+
+    def cut(tree, n):
+        from torch.utils import _pytree as pytree
+        return pytree.tree_map(lambda a: a[:n] if isinstance(a, torch.Tensor) else a, tree)
+
+    def ukf_run(dev, n, graph, params=(1.0, 2.0, 0.0), mod=ukf, smooth=False):
+        d = inputs(dev)
+        m, s = mod.new(x0, p0, d["noise"], *params, dtype=f64, device=dev)
+        out = mod.run(m, s, d["ys"][:n], fx, hx, d["us"][:n], d["masks"][:n], graph=graph)
+        if smooth:
+            out = out + (ukf.rts_smoother(m, out[1].state, out[1].covariance, fx, d["us"][:n],
+                                          graph=graph),)
+        return out
+
+    def ukf_variant(dev, n, graph, run):
+        d = inputs(dev)
+        m, s = ukf.new(x0, p0, d["noise"], dtype=f64, device=dev)
+        if run == "augmented":
+            return ukf.run_augmented(m, s, d["ys"][:n], aug_fx, aug_hx,
+                                     meas_masks=d["masks"][:n], graph=graph)
+        return ukf.run_iplf(m, s, d["ys"][:n], fx, hx, meas_masks=d["masks"][:n], iters=3,
+                            graph=graph)
+
+    def quad_run(dev, n, graph):
+        d = inputs(dev)
+        m, s = quadrature.new(x0, p0, d["noise"], order=3, dtype=f64, device=dev)
+        out = quadrature.run(m, s, d["ys"][:n], fx, hx, d["us"][:n], d["masks"][:n],
+                             graph=graph)
+        return out + (quadrature.rts_smoother(m, out[1].state, out[1].covariance, fx,
+                                              d["us"][:n], graph=graph),)
+
+    def enkf_run(dev, n, graph, method):
+        d = inputs(dev)
+        s = enkf.new(x0, p0, 64, z=d["z_enkf"], dtype=f64, device=dev)
+        loc = (dict(loc_xy=d["loc_xy"], loc_yy=d["loc_yy"]) if method == "stochastic"
+               else {})
+        return enkf.run(d["noise"], s, d["ys"][:n], fx, hx, cut(d["enkf"], n), None, 1.03,
+                        d["masks"][:n], method=method, graph=graph, **loc)
+
+    def enks_run(dev, n, graph):
+        d = inputs(dev)
+        s = enkf.new(x0, p0, 64, z=d["z_enkf"], dtype=f64, device=dev)
+        return enkf.run_enks(d["noise"], s, d["ys"][:n], fx, hx, 3, cut(d["enkf"], n),
+                             inflation=1.02, meas_masks=d["masks"][:n], graph=graph)
+
+    def trans_logpdf(dev):
+        qi = inputs(dev)["q_inv"]
+
+        def logpdf(x_next, x_prev):
+            dx = x_next - fx(x_prev)
+            return log_norm - 0.5 * ((dx @ qi) * dx).sum(-1)
+
+        return logpdf
+
+    def particle_run(dev, n, graph, ffbs=False):
+        d = inputs(dev)
+        s = particle.new(x0, p0, 256, z=d["z_particle"], dtype=f64, device=dev)
+        fns = (particle.additive_dynamics(fx, d["noise"]),
+               particle.gaussian_log_likelihood(hx, d["noise"]))
+        if ffbs:
+            return particle.run_ffbs(s, d["ys"][:n], *fns, trans_logpdf(dev),
+                                     cut(d["particle"], n), graph=graph)
+        return particle.run(s, d["ys"][:n], *fns, cut(d["particle"], n), None,
+                            d["masks"][:n], graph=graph)
+
+    def rbpf_run(dev, n, graph):
+        d = inputs(dev)
+        draws, (m, s) = d["rbpf"]
+        sin, cos = torch.sin, torch.cos
+        st = lambda xs: torch.stack(xs, -1)
+        f_eta = lambda e: st([e[..., 0] + 0.1 * sin(e[..., 1]), 0.95 * e[..., 1]])
+        g_eta = lambda e: st([0.1 * cos(e[..., 0]), 0.05 * e[..., 1]])
+        h_eta = lambda e: st([e[..., 0], 0.5 * e[..., 1] ** 2])
+        c_eta = lambda e: torch.stack([st([e[..., 0] * 0 + 1.0, 0.1 * e[..., 1]]),
+                                       st([e[..., 0] * 0, 1.0 + 0.2 * sin(e[..., 0])])], -2)
+        return rbpf.run(m, s, 0.3 * d["ys"][:n], f_eta, g_eta, h_eta, c_eta, cut(draws, n),
+                        d["masks"][:n], 0.9, graph=graph)
+
+    return {
+        "ukf.run": ukf_run,
+        "ukf.run + rts_smoother": functools.partial(ukf_run, smooth=True),
+        "ukf.run_augmented": functools.partial(ukf_variant, run="augmented"),
+        "ukf.run_iplf": functools.partial(ukf_variant, run="iplf"),
+        "srukf.run wc0>=0": functools.partial(ukf_run, mod=srukf),
+        "srukf.run wc0<0": functools.partial(ukf_run, params=(0.5, 2.0, 0.0), mod=srukf),
+        "quadrature.run + rts_smoother": quad_run,
+        "enkf.run stochastic": functools.partial(enkf_run, method="stochastic"),
+        "enkf.run etkf": functools.partial(enkf_run, method="etkf"),
+        "enkf.run_enks lag 3": enks_run,
+        "particle.run": particle_run,
+        "particle.run_ffbs": functools.partial(particle_run, ffbs=True),
+        "rbpf.run": rbpf_run,
+    }
+
+
+NL_STEPS = 24  # steps of each [nonlinear] runner
+NL_COUNT_STEPS = (4, 8)  # eager calls whose difference gives syncs and kernels per step
+NL_RTOL, NL_ATOL = 1e-9, 1e-12  # the card against the CPU, float64
+# Runners whose step cannot be captured: the ETKF's [N, N] eigh reads its
+# status on the host (a sync per step), so `enkf.run(method="etkf")`
+# runs the eager loop on the card.
+NL_EAGER = ("enkf.run etkf",)
+
+
+def tensor_leaves(torch, tree):
+    from torch.utils import _pytree as pytree
+
+    return [a for a in pytree.tree_leaves(tree) if isinstance(a, torch.Tensor)]
+
+
+def phase_nonlinear(gt, torch, device, card):
+    """[nonlinear]: every runner of the nonlinear slice on the card in
+    f64 (`nonlinear_runners`, NL_STEPS steps): the CUDA-graph replay
+    against the eager loop (bitwise, or within 1e-12 relative), the card
+    against the CPU through the same port function on the same inputs
+    and draws (NL_RTOL / NL_ATOL), the synchronizing calls per eager
+    step (0, but for NL_EAGER's runners) and kernels per eager step."""
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    span = NL_COUNT_STEPS[1] - NL_COUNT_STEPS[0]
+    out = {}
+    for name, fn in nonlinear_runners(gt, torch, NL_STEPS).items():
+        t0 = time.perf_counter()
+        replay, eager, host = (fn(device, NL_STEPS, True), fn(device, NL_STEPS, False),
+                               fn(cpu, NL_STEPS, False))
+        torch.cuda.synchronize()
+        pairs = list(zip(tensor_leaves(torch, replay), tensor_leaves(torch, eager)))
+        check(all(a.device == device for a, _ in pairs), f"[nonlinear] {name} ran off the card")
+        graph_err = max((float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                         for a, b in pairs if a.is_floating_point() and not torch.equal(a, b)),
+                        default=0.0)
+        check(all(torch.equal(a, b) for a, b in pairs if not a.is_floating_point())
+              and graph_err <= 1e-12,
+              f"[nonlinear] {name}: graph replay differs from the eager loop ({graph_err:.3g})")
+        card_err = 0.0
+        for a, b in zip(tensor_leaves(torch, replay), tensor_leaves(torch, host)):
+            a = a.cpu()
+            if a.is_floating_point():
+                card_err = max(card_err, _assert_close(f"[nonlinear] {name} card vs CPU", a, b,
+                                                       NL_RTOL, NL_ATOL))
+            else:
+                check(torch.equal(a, b), f"[nonlinear] {name}: card and CPU differ in {a.dtype}")
+        fn(device, NL_COUNT_STEPS[0], False)
+        syncs = [synchronizing_calls(lambda: fn(device, k, False), warm=False)
+                 for k in NL_COUNT_STEPS]
+        per_sync = (len(syncs[1]) - len(syncs[0])) / span
+        check(per_sync > 0 if name in NL_EAGER else per_sync == 0,
+              f"[nonlinear] {name}: {per_sync:g} synchronizing calls per eager step "
+              f"{syncs[1][:2]}")
+        profs = [launch_profile(lambda: fn(device, k, False)) for k in NL_COUNT_STEPS]
+        kernels = (None if None in profs else (profs[1][0] - profs[0][0]) / span)
+        why = (" (the ETKF's eigh reads its status on the host; this runner runs the eager "
+               "loop on the card)" if name in NL_EAGER else "")
+        replay_kind = ("eager loop on both paths" if name in NL_EAGER else
+                       "bitwise" if graph_err == 0.0 else f"{graph_err:.3g} relative")
+        log(f"[nonlinear] {name}: graph replay vs eager loop {replay_kind}; card vs CPU max|diff| "
+            f"{card_err:.3g} (rtol {NL_RTOL:g}, atol {NL_ATOL:g}); {per_sync:g} synchronizing "
+            f"calls per eager step{why}; "
+            + ("kernels per eager step not measured" if kernels is None else
+               f"{kernels:.1f} kernels per eager step")
+            + f"; {time.perf_counter() - t0:.1f} s host clock")
+        out[name] = dict(graph_err=graph_err, card_err=card_err, syncs=per_sync, kernels=kernels)
+    log(f"[nonlinear] {len(out)} runners, f64, {NL_STEPS} steps, phase "
+        f"{time.perf_counter() - t_phase:.1f} s host clock on {card}")
+    return out
+
+
+L96_N, L96_FORCING, L96_DT = 40, 8.0, 0.05  # bench.py:173
+L96_MEMBERS, L96_CYCLES, L96_SPINUP = 1_024, 300, 400  # bench.py:157, :192
+L96_ROUNDS = 5  # timed calls after a warm-up
+
+
+def l96_step(torch):
+    """bench.py:175-184's RK4 step of Lorenz-96, over leading dims."""
+
+    def deriv(x):
+        roll = lambda k: torch.roll(x, k, dims=-1)
+        return (roll(-1) - roll(2)) * roll(1) - x + L96_FORCING
+
+    def step(x):
+        k1 = deriv(x)
+        k2 = deriv(x + 0.5 * L96_DT * k1)
+        k3 = deriv(x + 0.5 * L96_DT * k2)
+        k4 = deriv(x + L96_DT * k3)
+        return x + (L96_DT / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    return step
+
+
+def phase_enkf_l96(gt, torch, device, card):
+    """[enkf l96]: bench.py's third leg on the card at its own size,
+    f32: N = 1,024 members, n = 40, 300 cycles; the truth spun up 400
+    steps from F·1 + 0.01 e₀, 20 of 40 sites observed with σ = 1,
+    Gaspari-Cohn localization c = 4 on the cyclic distance, P0 = 4 I,
+    inflation 1.04 (bench.py:173-226).  Gate: analysis RMSE over the last
+    two thirds < 1.0.  Prints the CUDA-event time of a run (draws
+    included, the median of L96_ROUNDS calls after a warm-up),
+    member-steps/s, kernels per cycle and device busy share from
+    torch.profiler, and peak memory."""
+    from gokalman_tpu_torch.filters import enkf
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    step = l96_step(torch)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.full((L96_N,), L96_FORCING, dtype=f32, device=device)
+    x[0] += 0.01
+    for _ in range(L96_SPINUP):
+        x = step(x)
+    truth = []
+    for _ in range(L96_CYCLES):
+        x = step(x)
+        truth.append(x)
+    truth = torch.stack(truth)
+    h_idx = torch.arange(0, L96_N, 2, device=device)
+    ys = truth[:, h_idx] + torch.randn(L96_CYCLES, h_idx.numel(), generator=gen, dtype=f32,
+                                       device=device)
+    noise = gt.noise.awgn(torch.zeros(L96_N, L96_N, dtype=f32, device=device),
+                          torch.eye(h_idx.numel(), dtype=f32, device=device))
+    sites = torch.arange(L96_N, dtype=f32, device=device)
+    cyc = lambda a, b: torch.minimum((a[:, None] - b[None, :]).abs(),
+                                     L96_N - (a[:, None] - b[None, :]).abs())
+    loc_xy = enkf.gaspari_cohn(cyc(sites, sites[h_idx]), 4.0)
+    loc_yy = enkf.gaspari_cohn(cyc(sites[h_idx], sites[h_idx]), 4.0)
+    x0 = truth[0] + 2.0 * torch.randn(L96_N, generator=gen, dtype=f32, device=device)
+    s0 = enkf.new(x0, 4.0 * torch.eye(L96_N, dtype=f32, device=device), L96_MEMBERS, gen)
+    hx = lambda e: e.index_select(-1, h_idx)
+
+    def call():
+        return enkf.run(noise, s0, ys, step, hx, inflation=1.04, loc_xy=loc_xy,
+                        loc_yy=loc_yy, generator=gen)[1].state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()  # tensors earlier phases still hold
+    means = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live
+    check(bool(torch.isfinite(means).all()), "enkf l96: non-finite analysis")
+    rmse = float(torch.sqrt(torch.mean((means - truth)[L96_CYCLES // 3:] ** 2)))
+    check(rmse < 1.0, f"enkf l96: analysis RMSE {rmse} >= 1.0 (bench.py:277)")
+    times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(L96_ROUNDS))
+    ms = times[len(times) // 2]
+    prof = launch_profile(call)
+    busy = ("device busy and kernels not measured" if prof is None else
+            f"{prof[0] / L96_CYCLES:.1f} kernels per cycle, device busy {prof[2]:.3f} ms of "
+            f"the {ms:.3f} ms call (share {prof[2] / ms:.1%}); top kernels "
+            + "; ".join(prof[3]))
+    rate = L96_MEMBERS * L96_CYCLES / ms * 1e3
+    log(f"[enkf l96] N = {L96_MEMBERS}, n = {L96_N}, {L96_CYCLES} cycles, f32 on {card}: "
+        f"analysis RMSE {rmse:.4f} over the last two thirds (gate < 1.0); {ms:.3f} ms per "
+        f"run (CUDA events, median of {L96_ROUNDS} after a warm-up; min {times[0]:.3f}, max "
+        f"{times[-1]:.3f}; draws and graph capture included), {rate:.4g} member-steps/s; "
+        f"peak memory of the run {peak / 2**20:.1f} MiB (above the {live / 2**20:.1f} MiB "
+        f"already allocated); {busy}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s host clock")
+    return dict(rmse=rmse, ms=ms, rate=rate, peak=peak, prof=prof)
+
+
 def kernel_entry(name, counts, max_err, ms, plain_ms, library_ms, bound_ms, bound_by,
                  **extra):
     return {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -1705,32 +2084,45 @@ def kernel_entry(name, counts, max_err, ms, plain_ms, library_ms, bound_ms, boun
 
 
 def run():
-    gt, torch, device = setup()
-    per_group = phase_build()
-    max_err = {"sample_normals": phase_k2_vs_plain(torch, device),
-               "fused_mc": max(phase_k1_vs_plain(gt, torch, device),
-                               phase_k1_offset(gt, torch, device))}
-    phase_k2_launch(torch, device)
-    mod, counts = phase_main_path(gt, torch, device)
-    world1, launches1 = phase_sharded_world1(gt, torch, device)
-    launches2 = phase_sharded_world2(world1)
-    counts["fused_mc"] += launches1 + sum(launches2)
-    times, full_err = phase_full_size(mod)
-    max_err["fused_mc"] = max(max_err["fused_mc"], full_err)
-    phase_device_times(mod)
-    k2 = phase_k2_time(torch, device, per_group)
-    phase_scan(torch, device)
+    t_run = time.perf_counter()
+    secs = {}
 
-    # The smoother legs, the time-sharded scan and the other filters:
-    # plain PyTorch, no kernel of their own (the JAX package has no
-    # Pallas code on these paths).
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = round(secs.get(name, 0.0) + time.perf_counter() - t0, 1)
+        return out
+
+    gt, torch, device = timed("setup", setup)
+    per_group = timed("build", phase_build)
+    max_err = {"sample_normals": timed("kernels vs plain", phase_k2_vs_plain, torch, device),
+               "fused_mc": max(timed("kernels vs plain", phase_k1_vs_plain, gt, torch, device),
+                               timed("kernels vs plain", phase_k1_offset, gt, torch, device))}
+    timed("K2 launch", phase_k2_launch, torch, device)
+    mod, counts = timed("main path", phase_main_path, gt, torch, device)
+    world1, launches1 = timed("sharded", phase_sharded_world1, gt, torch, device)
+    launches2 = timed("sharded", phase_sharded_world2, world1)
+    counts["fused_mc"] += launches1 + sum(launches2)
+    times, full_err = timed("K1 full size", phase_full_size, mod)
+    max_err["fused_mc"] = max(max_err["fused_mc"], full_err)
+    timed("K1 full size", phase_device_times, mod)
+    k2 = timed("K2 time", phase_k2_time, torch, device, per_group)
+    timed("scan", phase_scan, torch, device)
+
+    # The smoother legs, the time-sharded scan, the other filters, OD and
+    # the nonlinear and ensemble filters: plain PyTorch, no kernel of
+    # their own (the JAX package has no Pallas code on these paths).
     card = card_name_and_limit()
-    phase_smoother(gt, torch, device, card)
-    phase_smoother_parity(gt, torch, device)
-    ys, world1 = phase_time_sharded_world1(gt, torch, device)
-    phase_time_sharded_world2(ys, world1)
-    phase_filters(gt, torch, device)
-    phase_od(gt, torch, device, card)
+    timed("smoother", phase_smoother, gt, torch, device, card)
+    timed("smoother", phase_smoother_parity, gt, torch, device)
+    ys, world1 = timed("time-sharded", phase_time_sharded_world1, gt, torch, device)
+    timed("time-sharded", phase_time_sharded_world2, ys, world1)
+    timed("filters", phase_filters, gt, torch, device)
+    timed("od", phase_od, gt, torch, device, card)
+    timed("nonlinear", phase_nonlinear, gt, torch, device, card)
+    timed("enkf l96", phase_enkf_l96, gt, torch, device, card)
+    log(f"[time] phases (s, host clock): {json.dumps(secs)}; whole script "
+        f"{time.perf_counter() - t_run:.1f} s")
 
     log(card)
 

@@ -18,9 +18,12 @@ Monte-Carlo / chi-square harness (`montecarlo`, `chisquare`, `truth`,
 smoothers (`filters.smoothing`), the parallel-in-time filter and RTS
 smoother (`ops.assoc_scan`) and its time-sharded form
 (`parallel.time_scan`); orbital dynamics (`dynamics`) and orbit
-determination (`od`: the hybrid, consider, SRIF and batch runners, each
-step one CUDA graph replayed per step by `ops.scan.scan`), and the
-tracing and timing helpers (`profiling`).
+determination (`od`: the hybrid, consider, SRIF, batch, UKF and EnKF
+runners, each step one CUDA graph replayed per step by `ops.scan.scan`),
+the nonlinear and ensemble filters (`ukf`, `srukf`, `filters.quadrature`,
+`enkf`, `particle`, `rbpf`; their callables act on the stacked sigma
+points, members or particles, and their random draws are made before
+the scan), and the tracing and timing helpers (`profiling`).
 
 Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
@@ -28,7 +31,8 @@ Importing the package builds and loads no kernel: the CUDA sources in
 
 from . import (c2d, chisquare, convert, dynamics, filters, linalg, montecarlo, noise, od,
                ops, parallel, profiling, truth, types, workloads)
-from .filters import vanilla
+from .filters import enkf, particle, rbpf, srukf, ukf, vanilla
+from .types import FilterType
 
 __version__ = "0.1.0"
 
@@ -37,6 +41,8 @@ __all__ = [
     "chisquare",
     "convert",
     "dynamics",
+    "enkf",
+    "FilterType",
     "filters",
     "linalg",
     "montecarlo",
@@ -44,9 +50,13 @@ __all__ = [
     "od",
     "ops",
     "parallel",
+    "particle",
     "profiling",
+    "rbpf",
+    "srukf",
     "truth",
     "types",
+    "ukf",
     "vanilla",
     "workloads",
 ]

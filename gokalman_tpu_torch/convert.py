@@ -12,7 +12,9 @@ the card:
   fields [S, T, ...], runs, steps), so that both packages can be fed
   one set of runs (e.g. `chisquare.chi_square`).
 - `record_from_numpy`: any model, state or estimate of the information,
-  square-root, SRIF and hybrid filters, from its fields in order.
+  square-root, SRIF and hybrid filters, a state of the UKF, SR-UKF,
+  quadrature, EnKF, particle and RBPF filters, a quadrature `Rule` or a
+  `noise.BatchNoise`, from its fields in order.
 - `stations_from_numpy`, `measurements_from_numpy`,
   `trajectory_from_numpy`: the dynamics records (`dynamics.stations.
   Station`, `dynamics.propagate.MeasurementSet` / `Trajectory`), so that

@@ -11,6 +11,7 @@ host on the card.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -194,6 +195,70 @@ def chol_or_eigh_sqrt(a: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, l, sqrt_factor_psd(a))
 
 
+def _round_robin(m: int, device) -> tuple:
+    """The circle method's pairing of m (even) indices: [m-1, m/2] index
+    tensors p, q such that round r pairs p[r, i] with q[r, i], every pair
+    once per sweep and no index twice in a round.  Built by device
+    arithmetic, so it can run inside a captured CUDA graph."""
+    r = torch.arange(m - 1, device=device)[:, None]
+    i = torch.arange(m // 2, device=device)[None, :]
+    p = torch.where(i == 0, m - 1, torch.remainder(r + i, m - 1))
+    q = torch.remainder(r - i, m - 1)
+    return p, q
+
+
+JACOBI_SWEEPS = 8  # fixed, so a step can be captured; B Bᵀ meets eigh's to 1e-12 at n = 3, 6
+
+
+def sqrt_factor_psd_jacobi(a: torch.Tensor) -> torch.Tensor:
+    """`sqrt_factor_psd` without `torch.linalg.eigh`, whose CUDA path
+    reads its `info` on the host (a sync, and so no CUDA-graph capture):
+    B = V sqrt(max(λ, 0)) from JACOBI_SWEEPS cyclic Jacobi sweeps for
+    small symmetric A ([..., n, n], n ≤ 8 or so).  Each round applies
+    n/2 disjoint rotations as one orthogonal matrix J (A ← Jᵀ A J,
+    V ← V J; Numerical Recipes §11.1's angle): one gather of the round's
+    (a_pp, a_qq, a_pq), a few elementwise kernels, one scatter of J's
+    entries and three products.  Odd n is padded with a zero row and
+    column.  B Bᵀ equals eigh's clipped factor product; B's columns come
+    in another order and sign."""
+    n = a.shape[-1]
+    m = n + n % 2
+    if m != n:
+        a = torch.nn.functional.pad(a, (0, 1, 0, 1))
+    eye = torch.eye(m, dtype=a.dtype, device=a.device)
+    v = eye.expand(a.shape).clone()
+    ps, qs = _round_robin(m, a.device)
+    rounds = [(torch.cat([p, q, p]), torch.cat([p, q, q]), torch.cat([p, q, p, q]),
+               torch.cat([p, q, q, p])) for p, q in zip(ps, qs)]
+    k = m // 2
+    for _ in range(JACOBI_SWEEPS):
+        for rows, cols, j_rows, j_cols in rounds:
+            app, aqq, apq = a[..., rows, cols].split(k, dim=-1)
+            zero = apq == 0
+            theta = (aqq - app) / (2.0 * torch.where(zero, 1.0, apq))
+            t = torch.where(zero, 0.0, torch.where(theta >= 0, 1.0, -1.0)
+                            / (torch.abs(theta) + torch.hypot(theta, torch.ones_like(theta))))
+            c = torch.rsqrt(torch.addcmul(torch.ones_like(t), t, t))
+            s = t * c
+            j = eye.expand(a.shape).clone()
+            j[..., j_rows, j_cols] = torch.cat([c, c, s, -s], dim=-1)
+            a = j.transpose(-1, -2) @ a @ j
+            v = v @ j
+    w = torch.diagonal(a, dim1=-2, dim2=-1)
+    b = v * torch.sqrt(torch.clamp(w, min=0.0)).unsqueeze(-2)
+    return b[..., :n, :n]
+
+
+def chol_or_jacobi_sqrt(a: torch.Tensor) -> torch.Tensor:
+    """`chol_or_eigh_sqrt` for a step that runs inside a CUDA graph: the
+    lower Cholesky factor where it exists (bit for bit the JAX package's
+    `chol_or_eigh_sqrt`), else `sqrt_factor_psd_jacobi`.  Both branches
+    are computed and `torch.where` picks, so nothing waits for the card."""
+    l, info = torch.linalg.cholesky_ex(a)
+    ok = torch.all(info == 0) & torch.all(torch.isfinite(l))
+    return torch.where(ok, l, sqrt_factor_psd_jacobi(a))
+
+
 def chol_lower(a: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor, L Lᵀ = A; NaN where A is not positive
     definite, as JAX returns.  From `cholesky_ex`, whose `info` is tested
@@ -201,6 +266,43 @@ def chol_lower(a: torch.Tensor) -> torch.Tensor:
     card waits for the device to check."""
     l, info = torch.linalg.cholesky_ex(a)
     return torch.where((info == 0)[..., None, None], l, torch.nan)
+
+
+def chol_update(l: torch.Tensor, v: torch.Tensor, weight) -> torch.Tensor:
+    """Rank-1 Cholesky update / downdate: L' with L' L'ᵀ = L Lᵀ + w v vᵀ
+    (gokalman_tpu/linalg.py:chol_update).  `weight` (a number or a 0-d
+    tensor) may be negative; the caller keeps the result positive
+    definite.  LINPACK's sequential column algorithm as a Python loop
+    over the n ≤ 8 columns, each a `torch.where` on row masks; L is
+    [..., n, n] and v [..., n]."""
+    n = l.shape[-1]
+    if isinstance(weight, torch.Tensor):
+        w = weight.to(l.dtype)
+        sign = torch.where(w < 0, -1.0, 1.0).to(l.dtype)
+        x = v * torch.sqrt(torch.abs(w))
+    else:
+        sign = -1.0 if weight < 0 else 1.0
+        x = v * math.sqrt(abs(weight))
+    idx = torch.arange(n, device=l.device)
+    for k in range(n):
+        lkk, xk = l[..., k, k], x[..., k]
+        r = torch.sqrt(lkk * lkk + sign * xk * xk)
+        c = (r / lkk)[..., None]
+        s = (xk / lkk)[..., None]
+        below = idx > k
+        col = l[..., :, k]
+        newcol = torch.where(below, (col + sign * s * x) / c, col)
+        newcol = torch.where(idx == k, r[..., None], newcol)
+        x = torch.where(below, c * x - s * newcol, x)
+        l = torch.where(idx == k, newcol[..., :, None], l)
+    return l
+
+
+def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b given A's lower Cholesky factor L
+    (`jax.scipy.linalg.cho_solve((L, True), b)`): two triangular solves,
+    batched over leading dims; b is a vector ([..., n]) or a matrix."""
+    return solve_tri_upper(l.transpose(-1, -2), solve_tri_lower(l, b))
 
 
 def _solve_tri(t: torch.Tensor, b: torch.Tensor, upper: bool) -> torch.Tensor:

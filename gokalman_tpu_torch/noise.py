@@ -3,7 +3,8 @@
 Port of gokalman_tpu/noise.py (reference: noise.go:13-164).  A
 `torch.Generator` takes the place of a `jax.random` key; the two give
 different numbers from the same seed, so tests that compare the
-packages record the draws with numpy and hand them to both.
+packages record the draws with numpy and hand them to both
+(`BatchNoise`, the reference's recorded noise).
 """
 
 from __future__ import annotations
@@ -60,6 +61,26 @@ def awgn(q, r, *, dtype: Optional[torch.dtype] = None, device=None) -> Noise:
     q = _as_matrix(q, dtype, device)
     r = _as_matrix(r, dtype, device)
     return Noise(q, r, _safe_chol(q), _safe_chol(r))
+
+
+class BatchNoise(NamedTuple):
+    """Pre-recorded noise sequences (reference: noise.go:67-106).
+
+    `vanilla.run(..., ws=bn.ws, ws2=bn.ws, vs=bn.vs)` replays the
+    recorded draws (the reference returns the same vector for both
+    Process() calls of a step, hence ws2=ws).
+    """
+
+    ws: torch.Tensor  # [T, n] process noise draws
+    vs: torch.Tensor  # [T, p] measurement noise draws
+
+
+def batch(ws, vs, *, dtype: Optional[torch.dtype] = None, device=None) -> BatchNoise:
+    """BatchNoise of the recorded draws; tensors go to `device`, else
+    ws's or vs's, else the card."""
+    device = resolve_device(device, ws, vs)
+    return BatchNoise(torch.as_tensor(ws, dtype=dtype, device=device),
+                      torch.as_tensor(vs, dtype=dtype, device=device))
 
 
 def process_sample(noise: Noise, generator: torch.Generator) -> torch.Tensor:

@@ -8,10 +8,12 @@ through `ops.scan.scan`: a Python loop on the CPU, one CUDA graph
 replayed per step on the card.  Every step is free of host syncs: the
 choices on device values (measurement, EKF and SNC masks, the NIS gate,
 the IEKF branch) compute both branches and pick with `torch.where`, and
-the observing station is read with `index_select`.
+the observing station is read with `index_select`.  The full-state
+runners (`run_ukf_od`, `run_enkf_od`) push their sigma points or
+members through the flow and the station as one batch.
 
-Not ported yet: `run_ukf_od`, `run_enkf_od` and `consider_bias_analysis`
-(they wait for the port's ukf, enkf and schmidt filters).
+Not ported yet: `consider_bias_analysis` (it waits for the port's
+schmidt filter).
 """
 
 from __future__ import annotations
@@ -537,6 +539,123 @@ def run_srif_od(
     full, dev_x, cov, innov, refs, ests, *truths = ys
     return ODResult(full, dev_x, cov, innov, refs, has_meas, ests, None,
                     truths[0] if truths else None)
+
+
+def _station_obs(stations: st.Station, idx):
+    """hx of the full-state runners: [ρ, ρ̇] of the states [..., 6] from
+    the station `idx` (picked by `index_select`, no host sync)."""
+    safe = torch.clamp(idx, min=0).reshape(1)
+    sel = st.Station(*(f.index_select(0, safe).squeeze(0) for f in stations))
+    return lambda x, theta: st.range_range_rate(sel, x, theta)
+
+
+def _full_state_out(est):
+    """The full-state runners' outputs: no reference / deviation split,
+    so ref_states carries the estimate and deviations are zero."""
+    return (est.state, torch.zeros_like(est.state), est.covariance, est.innovation, est.state,
+            est)
+
+
+@linalg.highp
+def run_ukf_od(
+    x0_ref,
+    p0,
+    noise,
+    meas: MeasurementSet,
+    dt: float,
+    theta0: float = 0.0,
+    stations_list=(),
+    degree: int = 2,
+    method: str = "rk4",
+    substeps: int = 1,
+    t0: float = 0.0,
+    alpha: float = 1.0,
+    beta: float = 2.0,
+    kappa: float = 0.0,
+    *,
+    device=None,
+    graph: bool = True,
+) -> ODResult:
+    """Full-state unscented orbit determination: no reference trajectory,
+    STM or Jacobian; the 13 sigma points go through the orbital flow and
+    the station's [ρ, ρ̇] as one batch.  A step without a measurement is
+    the unscented time update (`ukf.step`'s `has` mask).  `device` and
+    `graph` as in `run_hybrid_od`."""
+    from .filters import ukf
+
+    s = _setup(x0_ref, p0, meas, stations_list, dt, t0, device)
+    fx = integrators.flow(functools.partial(gravity.eom, degree=degree), dt, method, substeps)
+    model, ustate0 = ukf.new(s.x0, torch.as_tensor(p0, dtype=s.dtype, device=s.device),
+                             _noise(noise, s), alpha, beta, kappa)
+
+    def body(ustate, xs):
+        real_obs, idx, has, t = xs
+        theta = theta0 + c.EARTH_ROTATION_RATE * t
+        obs = _station_obs(s.stations, idx)
+        ustate, est = ukf.step(model, ustate, real_obs, fx, lambda x: obs(x, theta), has=has)
+        return ustate, _full_state_out(est)
+
+    xs = (s.meas.obs, s.meas.station_idx, s.meas.has_meas, s.times)
+    _, (full, dev_x, cov, innov, refs, ests) = scan(body, ustate0, xs, graph=graph)
+    return ODResult(full, dev_x, cov, innov, refs, s.meas.has_meas, ests)
+
+
+@linalg.highp
+def run_enkf_od(
+    x0_ref,
+    p0,
+    noise,
+    meas: MeasurementSet,
+    dt: float,
+    draws=None,
+    n_ens: int = 64,
+    theta0: float = 0.0,
+    stations_list=(),
+    degree: int = 2,
+    method: str = "rk4",
+    substeps: int = 1,
+    t0: float = 0.0,
+    inflation: float = 1.0,
+    *,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    graph: bool = True,
+) -> ODResult:
+    """Ensemble (stochastic EnKF) orbit determination, derivative-free
+    like `run_ukf_od`: the N members go through the orbital flow and the
+    station's [ρ, ρ̇] as one [N, 6] batch, and the perturbed-observation
+    analysis replaces the linearized update.  `draws` = (z0 [N, 6], an
+    `enkf.Draws` of [T, N, ·]) takes the place of the JAX package's key
+    (the initial spread, the process noise and the observation
+    perturbations); with `generator` instead they are drawn on the run's
+    device.  `device` and `graph` as in `run_hybrid_od`."""
+    from .filters import enkf
+
+    s = _setup(x0_ref, p0, meas, stations_list, dt, t0, device)
+    fx = integrators.flow(functools.partial(gravity.eom, degree=degree), dt, method, substeps)
+    noise = _noise(noise, s)
+    if draws is None:
+        if generator is None:
+            raise ValueError("run_enkf_od needs draws or a generator")
+        z0 = torch.randn((n_ens, s.x0.shape[0]), generator=generator, dtype=s.dtype,
+                         device=s.device)
+        draws = (z0, enkf.draws(generator, s.meas.obs.shape[0], n_ens, s.x0.shape[0],
+                                s.meas.obs.shape[-1], s.dtype, s.device))
+    z0, step_draws = draws
+    state0 = enkf.new(s.x0, torch.as_tensor(p0, dtype=s.dtype, device=s.device), n_ens,
+                      z=z0)
+
+    def body(estate, xs):
+        real_obs, idx, has, t, z = xs
+        theta = theta0 + c.EARTH_ROTATION_RATE * t
+        obs = _station_obs(s.stations, idx)
+        estate, est = enkf.step(noise, estate, real_obs, fx, lambda x: obs(x, theta), z,
+                                inflation=inflation, has=has)
+        return estate, _full_state_out(est)
+
+    xs = (s.meas.obs, s.meas.station_idx, s.meas.has_meas, s.times, step_draws)
+    _, (full, dev_x, cov, innov, refs, ests) = scan(body, state0, xs, graph=graph)
+    return ODResult(full, dev_x, cov, innov, refs, s.meas.has_meas, ests)
 
 
 @linalg.highp

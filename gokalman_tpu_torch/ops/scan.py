@@ -21,7 +21,8 @@ from torch.utils import _pytree as pytree
 Elems = Tuple[torch.Tensor, ...]
 
 
-def scan(step: Callable, carry, xs, length: int = None, *, graph: bool = True):
+def scan(step: Callable, carry, xs, length: int = None, *, reverse: bool = False,
+         graph: bool = True):
     """`jax.lax.scan`: for t in 0..T-1, `carry, y_t = step(carry, x_t)`
     where x_t is row t of every tensor leaf of `xs` (None and other
     non-tensor leaves pass through as they are; `xs=None` with `length`
@@ -30,6 +31,11 @@ def scan(step: Callable, carry, xs, length: int = None, *, graph: bool = True):
     0 returns the carry and [0, ...] outputs (`_empty_ys`, which runs the
     step once to learn their shapes), so a step must change nothing but
     its carry: no generator it draws from, no tensor it closes over.
+
+    `reverse=True` is `lax.scan`'s reverse: the step reads rows T-1 ... 0
+    and `ys` comes back in the original time order (y_t is the output of
+    the step that read row t).  The rows are flipped in, the same forward
+    scan runs, and the outputs are flipped out, on both paths.
 
     With CUDA tensors and `graph=True` the step runs as one CUDA graph:
     `step` is warmed up once on a side stream, then captured reading its
@@ -47,6 +53,11 @@ def scan(step: Callable, carry, xs, length: int = None, *, graph: bool = True):
         raise ValueError("scan needs tensor xs or a length")
     if steps == 0:
         return carry, _empty_ys(step, carry, flat_xs, xs_spec)
+    if reverse:
+        flip = lambda a: torch.flip(a, (0,)) if isinstance(a, torch.Tensor) else a
+        carry, ys = scan(step, carry, pytree.tree_unflatten([flip(a) for a in flat_xs], xs_spec),
+                         length, graph=graph)
+        return carry, pytree.tree_map(flip, ys)
     leaves = [a for a in pytree.tree_flatten(carry)[0] + flat_xs
               if isinstance(a, torch.Tensor)]
     on_card = bool(leaves) and leaves[0].device.type == "cuda"
