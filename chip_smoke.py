@@ -95,8 +95,8 @@ TIME_STEPS = 65_536  # one sequence of the time-sharded scan
 OD_STATIONS = ((-35.398333, 148.981944), (40.427222, -4.250556), (35.247164, -116.795))
 OD_DT, OD_TRUTH_STEPS, OD_ARC_STEPS = 10.0, 8_640, 5_120
 OD_SATELLITES = 64  # the constellation row (bench_od.py:203)
-OD_PARITY_STEPS = 500  # graph replay vs the eager loop
-OD_SYNC_STEPS = (5, 55)  # eager calls whose difference is 50 steps
+OD_PARITY_STEPS = 200  # graph replay vs the eager loop
+OD_SYNC_STEPS = (5, 25)  # eager calls whose difference is 20 steps
 OD_COUNT_STEPS = (2, 6)  # eager calls whose difference gives kernels per step
 OD_PROFILED_STEPS = (10, 30)  # profiled graph runs whose difference is per step
 OD_WARMUP_STEPS = 50  # the untimed call before the timed ones
@@ -2074,6 +2074,525 @@ def phase_enkf_l96(gt, torch, device, card):
     return dict(rmse=rmse, ms=ms, rate=rate, peak=peak, prof=prof)
 
 
+def robust_fns(torch):
+    """The [robust] phase's UKF-mode system, batch-native over leading
+    dims: fx(x) a constant-velocity step (dt 0.25), hx(x) a range to a
+    point 1 off the track."""
+    return (lambda x: torch.stack([x[..., 0] + 0.25 * x[..., 1], x[..., 1]], -1),
+            lambda x: torch.sqrt(1.0 + x[..., :1] ** 2))
+
+
+def robust_runners(gt, torch, steps):
+    """{name: (fn(device, n, graph), single)} of every runner of the
+    robust, adaptive and mixture slice and of every loop it moved onto
+    `ops.scan.scan`, on small f64 systems: the first n of `steps` steps
+    (single calls ignore n and graph), inputs and recorded noise made
+    once on the host (numpy, seeded) and moved to `device`, so the card
+    and the CPU run the same numbers."""
+    import numpy as np
+
+    from gokalman_tpu_torch.filters import (adaptive, constrained, gsf, hinf, hybrid, imm,
+                                            information, setmembership, smoothing, sqrt, srif,
+                                            studentt, ukf, vanilla)
+    from gokalman_tpu_torch.ops.bank import tile
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 8)
+    n, p = 4, 2
+    spd = lambda k, s: (lambda a: s * (a @ a.T + k * np.eye(k)))(rng.standard_normal((k, k)))
+    sysm = dict(f=np.eye(n) + 0.05 * rng.standard_normal((n, n)), g=rng.standard_normal((n, 1)),
+                h=rng.standard_normal((p, n)), q=spd(n, 0.01), r=spd(p, 0.1),
+                x0=rng.standard_normal(n), p0=spd(n, 1.0))
+    ys = rng.standard_normal((steps, p))
+    ys[steps // 3] += 8.0  # an outlier for the gated and Huber steps
+    host = dict(ys=ys, us=rng.standard_normal((steps, 1)),
+                ws=0.1 * rng.standard_normal((steps, n)), vs=0.3 * rng.standard_normal((steps, p)),
+                rs=np.repeat(sysm["r"][None], steps, 0) * np.linspace(0.5, 2.0, steps)[:, None, None],
+                masks=rng.random((steps, p)) > 0.3, has=np.arange(steps) % 5 != 3,
+                ys1=rng.standard_normal((steps, 1)), ys3=rng.standard_normal((steps, 3, 1)),
+                m_cross=0.02 * rng.standard_normal((n, p)))
+    # examples/robust_estimation.py's 2-state system for hinf and set-membership.
+    f2 = np.array([[1.0, 0.1], [0.0, 1.0]])
+    q2 = np.array([[0.1**3 / 3, 0.1**2 / 2], [0.1**2 / 2, 0.1]]) * 0.02
+    qb, rb = np.diag([2 * 0.01**2, 2 * 0.02**2]), np.array([[0.1**2]])
+    mix_xs = rng.standard_normal((9, 2)) * 2.0
+    mix_xs[1] = mix_xs[0] + 0.05
+    mix_ps = np.stack([(lambda a: a @ a.T + 0.3 * np.eye(2))(0.5 * rng.standard_normal((2, 2)))
+                       for _ in range(9)])
+    mix_w = rng.uniform(0.2, 1.0, 9)
+    mix_w /= mix_w.sum()
+    fx, hx = robust_fns(torch)
+    cache = {}
+
+    def d(dev):
+        if dev in cache:
+            return cache[dev]
+        t = lambda a: torch.as_tensor(a, dtype=f64, device=dev)
+        e = {k: (torch.as_tensor(v, device=dev) if v.dtype == bool else t(v))
+             for k, v in host.items()}
+        e["t"] = t
+        e["awgn"] = gt.noise.awgn(sysm["q"], sysm["r"], dtype=f64, device=dev)
+        e["cv"] = vanilla.new(*(sysm[k] for k in ("x0", "p0", "f", "g", "h")), e["awgn"],
+                              dtype=f64, device=dev)
+        e["phis"] = t(np.repeat(sysm["f"][None], steps, 0))
+        e["hts"] = t(np.repeat(sysm["h"][None], steps, 0))
+        e["zeros"] = t(np.zeros((steps, p)))
+        dt = 0.5
+        cvs = [vanilla.new(np.zeros(2), np.eye(2), np.array([[1.0, dt], [0.0, 1.0]]),
+                           np.array([[0.5 * dt**2], [dt]]), np.array([[1.0, 0.0]]),
+                           gt.noise.noiseless(s * np.array([[dt**3 / 3, dt**2 / 2],
+                                                            [dt**2 / 2, dt]]),
+                                              np.array([[0.09]]), dtype=f64, device=dev),
+                           dtype=f64, device=dev)[0] for s in (1e-4, 1.0)]
+        e["imm"] = imm.new(np.array([0.0, 0.4]), np.eye(2), cvs,
+                           np.array([[0.97, 0.03], [0.03, 0.97]]))
+        ukms = [ukf.new(np.zeros(2), np.eye(2), gt.noise.noiseless(np.diag(q), [[1e-2]], dtype=f64,
+                                                                   device=dev),
+                        dtype=f64, device=dev)[0]
+                for q in (np.array([1e-6, 1e-6]), np.array([1e-6, 0.25]))]
+        e["imm_ukf"] = imm.new_ukf(np.array([0.5, 0.4]), 0.1 * np.eye(2), ukms,
+                                   np.array([[0.97, 0.03], [0.03, 0.97]]))
+        e["gsf"] = gsf.new(np.array([[0.0, 0.4], [1.0, -0.2], [-0.5, 0.1]]), np.eye(2),
+                           [cvs[0], cvs[1], cvs[0]], w0=np.array([0.5, 0.3, 0.2]))
+        e["gsf_ukf"] = gsf.new_ukf(np.array([[-0.5, 0.0], [0.5, 0.0]]), 0.5 * np.eye(2), ukms)
+        e["mix"] = (t(mix_xs), t(mix_ps), t(mix_w))
+        cache[dev] = e
+        return e
+
+    def vanilla_run(dev, k, graph):
+        e = d(dev)
+        m, s = e["cv"]
+        return vanilla.run(m, s, e["ys"][:k], e["us"][:k], ws=e["ws"][:k], ws2=e["ws"][:k],
+                           vs=e["vs"][:k], rs=e["rs"][:k], meas_masks=e["masks"][:k], graph=graph)
+
+    def information_run(dev, k, graph):
+        e = d(dev)
+        m, s = information.new_from_state(*(sysm[x] for x in ("x0", "p0", "f", "g", "h")),
+                                          e["awgn"], dtype=f64, device=dev)
+        return information.run(m, s, e["ys"][:k], e["us"][:k], rs=e["rs"][:k],
+                               meas_masks=e["masks"][:k], graph=graph)
+
+    def sqrt_run(dev, k, graph):
+        e = d(dev)
+        m, s = sqrt.new(*(sysm[x] for x in ("x0", "p0", "f", "g", "h")), e["awgn"], dtype=f64,
+                        device=dev)
+        return sqrt.run(m, s, e["ys"][:k], e["us"][:k], rs=e["rs"][:k],
+                        meas_masks=e["masks"][:k], graph=graph)
+
+    def srif_run(dev, k, graph):
+        e = d(dev)
+        gamma = np.vstack([np.zeros((2, 2)), np.eye(2)])
+        m, s, _ = srif.new(sysm["x0"], sysm["p0"], p, False,
+                           gt.noise.noiseless(0.02 * np.eye(2), sysm["r"], dtype=f64, device=dev),
+                           gamma=gamma, dtype=f64, device=dev)
+        return srif.run(m, s, e["phis"][:k], e["hts"][:k], e["ys"][:k], e["zeros"][:k],
+                        e["has"][:k], graph=graph)
+
+    def hybrid_run(dev, k, graph, smooth=False):
+        e = d(dev)
+        m, s = hybrid.new(np.zeros(n), sysm["p0"], e["awgn"], p, dtype=f64, device=dev)
+        gammas = e["t"](np.repeat(np.eye(n)[None], k, 0))
+        out = hybrid.run(m, s, e["phis"][:k], e["hts"][:k], e["ys"][:k], e["zeros"][:k],
+                         e["has"][:k], gammas=gammas, snc_mask=e["has"][:k],
+                         ekf_mask=None if smooth else ~e["has"][:k], graph=graph)
+        return hybrid.smooth_all_rts(out[1], graph=graph) if smooth else out
+
+    def smoother(dev, k, graph, which):
+        e = d(dev)
+        m, s = e["cv"]
+        est = vanilla.run(m, s, e["ys"][:k], e["us"][:k], graph=graph)[1]
+        phis, q, off = e["phis"][:k], m.noise.q, e["us"][:k] @ m.g.T
+        if which == "rts":
+            return smoothing.rts_smoother(phis, q, est.state, est.covariance, offsets=off,
+                                          graph=graph)
+        if which == "phi_inverse":
+            return smoothing.phi_inverse_smoother(phis, est.state, est.covariance, graph=graph)
+        if which == "fixed_lag":
+            return smoothing.fixed_lag_smoother(phis, q, est.state, est.covariance, 5, graph=graph)
+        if which == "fixed_point":
+            return smoothing.fixed_point_smoother(m.f, m.h, m.noise.r, est.state, est.covariance,
+                                                  est.innovation, est.pred_covariance, 2,
+                                                  graph=graph)
+        return smoothing.two_filter_smoother(phis, q, m.h, m.noise.r, e["ys"][:k], est.state,
+                                             est.covariance, e["has"][:k], offsets=off,
+                                             graph=graph)
+
+    def classic(dev, k, graph, which):
+        e = d(dev)
+        m, s = e["cv"]
+        y, u = e["ys"][:k], e["us"][:k]
+        if which == "gated":
+            return vanilla.run_gated(m, s, y, u, 9.0, graph=graph)
+        if which == "robust":
+            return vanilla.run_robust(m, s, y, u, 1.345, 2, graph=graph)
+        if which == "steady":
+            return vanilla.run_steady_state(m, s.x, y, u, graph=graph)
+        if which == "fading":
+            return vanilla.run_fading(m, s, y, u, 1.05, rs=e["rs"][:k], meas_masks=e["masks"][:k],
+                                      graph=graph)
+        if which == "correlated":
+            return vanilla.run_correlated(m, s, y, e["m_cross"], u, graph=graph)
+        return constrained.run(m, s, np.array([[1.0, -1.0, 0.0, 0.0]]), np.array([0.5]), y, u,
+                               graph=graph)
+
+    def hinf_run(dev, k, graph, gamma):
+        e = d(dev)
+        m, s = hinf.new(f2 @ np.zeros(2), f2 @ f2.T + q2, f2, None, np.array([[1.0, 0.0]]),
+                        gt.noise.noiseless(q2, [[0.25]], dtype=f64, device=dev), gamma=gamma,
+                        dtype=f64, device=dev)
+        return hinf.run(m, s, e["ys1"][:k], graph=graph)
+
+    def setmembership_run(dev, k, graph, iters):
+        e = d(dev)
+        m, s = setmembership.new(np.zeros(2), np.diag([0.5, 0.5]), f2, None,
+                                 np.array([[1.0, 0.0]]),
+                                 gt.noise.noiseless(qb, rb, dtype=f64, device=dev), iters,
+                                 dtype=f64, device=dev)
+        return setmembership.run(m, s, 0.05 * e["ys1"][:k], graph=graph)
+
+    def adaptive_run(dev, k, graph, mode):
+        e = d(dev)
+        # A tight prior and R above the model's: R̂ = Ĉ − H P⁻ Hᵀ stays
+        # positive definite from the first step.
+        args = (sysm["x0"], 0.01 * np.eye(n), sysm["f"], sysm["g"], sysm["h"],
+                gt.noise.noiseless(0.1 * sysm["q"], 3.0 * sysm["r"], dtype=f64, device=dev))
+        if mode == "vb":
+            m, s, cfg = adaptive.vb_new(*args, 0.97, 3.0, 3, dtype=f64, device=dev)
+            return adaptive.vb_run(m, s, cfg, e["ys"][:k], e["us"][:k], e["has"][:k],
+                                   graph=graph)
+        m, s, cfg = adaptive.new(*args, 10, mode, dtype=f64, device=dev)
+        return adaptive.run(m, s, cfg, e["ys"][:k], e["us"][:k], graph=graph)
+
+    def studentt_run(dev, k, graph):
+        e = d(dev)
+        m, s = studentt.new(*(sysm[x] for x in ("x0", "p0", "f", "g", "h")), e["awgn"], 5.0,
+                            dtype=f64, device=dev)
+        return studentt.run(m, s, e["ys"][:k], e["us"][:k], e["has"][:k], graph=graph)
+
+    def imm_run(dev, k, graph, which):
+        e = d(dev)
+        if which == "ukf":
+            m, s = e["imm_ukf"]
+            return imm.run_ukf(m, s, 1.0 + e["ys1"][:k] ** 2, fx, hx, meas_masks=e["has"][:k],
+                               graph=graph)
+        m, s = e["imm"]
+        if which == "bank":
+            return imm.run(m, tile(s, 3), e["ys3"][:k], graph=graph)
+        out = imm.run(m, s, e["ys1"][:k], 0.1 * e["us"][:k], e["has"][:k], graph=graph)
+        return out + (imm.rts_smoother(m, out[1], graph=graph),) if which == "rts" else out
+
+    def gsf_run(dev, k, graph, which):
+        e = d(dev)
+        if which == "ukf":
+            m, s = e["gsf_ukf"]
+            return gsf.run_ukf(m, s, 1.0 + e["ys1"][:k] ** 2, fx, hx, graph=graph)
+        m, s = e["gsf"]
+        return gsf.run(m, s, e["ys1"][:k], 0.1 * e["us"][:k], e["has"][:k], graph=graph)
+
+    def single(dev, k, graph, which):
+        e = d(dev)
+        m, s = e["cv"]
+        if "step" not in e:  # the inputs of the two single calls, made once
+            e["step"] = vanilla.step(m, s, e["ys"][0], e["us"][0])
+            e["trace"] = vanilla.run(m, s, e["ys"], e["us"], graph=False)[1]
+            e["f_half"] = 0.5 * (m.f + torch.eye(n, dtype=f64, device=dev))
+        if which == "oosm":
+            return vanilla.oosm_update(m, *e["step"], e["ys"][1], e["f_half"], 0.5 * m.noise.q,
+                                       offset=0.1 * m.g[:, 0])
+        if which == "loglik":
+            return vanilla.innovations_log_likelihood(m, e["trace"])
+        xs, ps, w = e["mix"]
+        if which == "reduce":
+            return (gsf.reduce_mixture(xs, ps, torch.log(w), 3),
+                    gsf.reduce_mixture(xs, ps, torch.log(w), 3, pool=6))
+        return gsf.cluster_reduce(xs, ps, 3.0 * w, 4)
+
+    part = functools.partial
+    runners = {
+        "vanilla.run": vanilla_run, "information.run": information_run, "sqrt.run": sqrt_run,
+        "srif.run": srif_run, "hybrid.run": hybrid_run,
+        "hybrid.smooth_all_rts": part(hybrid_run, smooth=True)}
+    for which in ("rts", "phi_inverse", "fixed_lag", "fixed_point", "two_filter"):
+        runners[f"smoothing.{which}_smoother"] = part(smoother, which=which)
+    for which, name in (("gated", "vanilla.run_gated"), ("robust", "vanilla.run_robust"),
+                        ("steady", "vanilla.run_steady_state"), ("fading", "vanilla.run_fading"),
+                        ("correlated", "vanilla.run_correlated"),
+                        ("constrained", "constrained.run")):
+        runners[name] = part(classic, which=which)
+    runners.update({
+        "hinf.run gamma 3": part(hinf_run, gamma=3.0),
+        "hinf.run gamma 0.5": part(hinf_run, gamma=0.5),
+        "setmembership.run lam_iters 40": part(setmembership_run, iters=40),
+        "setmembership.run lam_iters 30": part(setmembership_run, iters=30),
+        "adaptive.run r": part(adaptive_run, mode="r"),
+        "adaptive.run q": part(adaptive_run, mode="q"),
+        "adaptive.vb_run": part(adaptive_run, mode="vb"),
+        "studentt.run": studentt_run,
+        "imm.run": part(imm_run, which="plain"),
+        "imm.run bank of 3": part(imm_run, which="bank"),
+        "imm.run + rts_smoother": part(imm_run, which="rts"),
+        "imm.run_ukf": part(imm_run, which="ukf"),
+        "gsf.run": part(gsf_run, which="plain"),
+        "gsf.run_ukf": part(gsf_run, which="ukf")})
+    out = {name: (fn, False) for name, fn in runners.items()}
+    for which, name in (("oosm", "vanilla.oosm_update"),
+                        ("loglik", "vanilla.innovations_log_likelihood"),
+                        ("reduce", "gsf.reduce_mixture"), ("cluster", "gsf.cluster_reduce")):
+        out[name] = (part(single, which=which), True)
+    return out
+
+
+ROBUST_STEPS = 24  # steps of each [robust] runner
+ROBUST_COUNT_STEPS = (3, 6)  # eager calls whose difference gives syncs and kernels per step
+ROBUST_RTOL, ROBUST_ATOL = 1e-9, 1e-12  # the card against the CPU, float64
+# Set-membership at its default 40 golden-section iterations: the last
+# brackets (~4e-9 wide) are decided by `fc < fd` on objective values that
+# differ by rounding, so two runs whose roundings differ (graph replay and
+# eager on the card: cuBLAS / cuSOLVER under capture; the card and the
+# CPU; torch and JAX) may take another bracket on some step.  Its fields
+# are then held to 1e-6 of their largest value (on an H100: 1.84e-7
+# graph vs eager), its consistency flags exactly; at 30 iterations it is
+# held as every other runner.
+ROBUST_FLIP = {"setmembership.run lam_iters 40": 1e-6}
+# The loops moved onto ops.scan.scan, timed as replay against eager
+# (`[filters]`): CUDA events of calls of these lengths, whose difference
+# is per step.  A call captures its graph anew, whose time varies by a
+# few ms from call to call (on an H100, over a 192-step span, the replay
+# read from 0.02 to 0.17 ms per step for the same runner), so the replay takes the
+# median of FILTER_TIME_ROUNDS calls over a span of ~1,000 steps.
+FILTER_TIME_STEPS = {True: (16, 1008), False: (16, 48)}
+FILTER_TIME_ROUNDS = 3
+REPAIRED = ("vanilla.run", "information.run", "sqrt.run", "srif.run", "hybrid.run",
+            "hybrid.smooth_all_rts", "smoothing.rts_smoother", "smoothing.phi_inverse_smoother",
+            "smoothing.fixed_lag_smoother", "smoothing.fixed_point_smoother",
+            "smoothing.two_filter_smoother")
+
+
+def phase_robust(gt, torch, device, card):
+    """[robust]: every runner of the robust, adaptive and mixture slice
+    and every loop it moved onto `ops.scan.scan`, on the card in f64
+    (`robust_runners`, ROBUST_STEPS steps): the CUDA-graph replay against
+    the eager loop (bitwise, or within 1e-12 relative), the card against
+    the CPU through the same port function on the same inputs
+    (ROBUST_RTOL / ROBUST_ATOL), the synchronizing calls per eager step
+    (0) and kernels per eager step; a single call (OOSM, the
+    log-likelihood, the two mixture reductions) against the CPU, with its
+    synchronizing calls (0) and kernels per call."""
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    span = ROBUST_COUNT_STEPS[1] - ROBUST_COUNT_STEPS[0]
+    out = {}
+    for name, (fn, single) in robust_runners(gt, torch, ROBUST_STEPS).items():
+        t0 = time.perf_counter()
+        replay, host = fn(device, ROBUST_STEPS, True), fn(cpu, ROBUST_STEPS, False)
+        eager = replay if single else fn(device, ROBUST_STEPS, False)
+        torch.cuda.synchronize()
+        pairs = list(zip(tensor_leaves(torch, replay), tensor_leaves(torch, eager)))
+        check(all(a.device == device for a, _ in pairs), f"[robust] {name} ran off the card")
+        check(all(bool(torch.isfinite(a).all()) for a, _ in pairs if a.is_floating_point()),
+              f"[robust] {name}: non-finite output")
+        relative = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+        graph_err = max((relative(a, b) for a, b in pairs
+                         if a.is_floating_point() and not torch.equal(a, b)), default=0.0)
+        flip = ROBUST_FLIP.get(name)
+        check(all(torch.equal(a, b) for a, b in pairs if not a.is_floating_point())
+              and graph_err <= (flip or 1e-12),
+              f"[robust] {name}: graph replay differs from the eager loop ({graph_err:.3g})")
+        card_err = 0.0
+        for a, b in zip(tensor_leaves(torch, replay), tensor_leaves(torch, host)):
+            a = a.cpu()
+            if not a.is_floating_point():
+                check(torch.equal(a, b), f"[robust] {name}: card and CPU differ in {a.dtype}")
+            elif flip:
+                card_err = max(card_err, relative(a, b))
+                check(card_err <= flip, f"[robust] {name}: card vs CPU {card_err:.3g} relative")
+            else:
+                card_err = max(card_err, _assert_close(f"[robust] {name} card vs CPU", a, b,
+                                                       ROBUST_RTOL, ROBUST_ATOL))
+        if single:
+            syncs = synchronizing_calls(lambda: fn(device, 0, False))
+            per_sync = float(len(syncs))
+            prof = launch_profile(lambda: fn(device, 0, False))
+            kernels = None if prof is None else float(prof[0])
+            unit = "call"
+        else:
+            fn(device, ROBUST_COUNT_STEPS[0], False)
+            counts = [synchronizing_calls(lambda: fn(device, k, False), warm=False)
+                      for k in ROBUST_COUNT_STEPS]
+            per_sync = (len(counts[1]) - len(counts[0])) / span
+            syncs = counts[1]
+            profs = [launch_profile(lambda: fn(device, k, False)) for k in ROBUST_COUNT_STEPS]
+            kernels = None if None in profs else (profs[1][0] - profs[0][0]) / span
+            unit = "eager step"
+        check(per_sync == 0, f"[robust] {name}: {per_sync:g} synchronizing calls per {unit} "
+              f"{syncs[:2]}")
+        replay_kind = ("single call" if single else
+                       "bitwise" if graph_err == 0.0 else f"{graph_err:.3g} relative")
+        held = (f"{card_err:.3g} relative (bracket flips: within {flip:g} of the largest "
+                "value, flags equal)" if flip else
+                f"max|diff| {card_err:.3g} (rtol {ROBUST_RTOL:g}, atol {ROBUST_ATOL:g})")
+        log(f"[robust] {name}: graph replay vs eager loop {replay_kind}; card vs CPU {held}; "
+            f"{per_sync:g} "
+            f"synchronizing calls per {unit}; "
+            + (f"kernels per {unit} not measured" if kernels is None else
+               f"{kernels:.1f} kernels per {unit}")
+            + f"; {time.perf_counter() - t0:.1f} s host clock")
+        out[name] = dict(graph_err=graph_err, card_err=card_err, syncs=per_sync, kernels=kernels)
+    log(f"[robust] {len(out)} runners and calls, f64, {ROBUST_STEPS} steps, phase "
+        f"{time.perf_counter() - t_phase:.1f} s host clock on {card}")
+    return out
+
+
+def phase_filters_time(gt, torch, device, card):
+    """[filters] times: each loop moved onto `ops.scan.scan` (REPAIRED,
+    `robust_runners`' f64 systems) by CUDA events, the graph replay and
+    the eager loop, at FILTER_TIME_STEPS steps; the difference of the
+    two lengths over their step difference is ms per step (the capture
+    and the set-up cancel)."""
+    runners = robust_runners(gt, torch, FILTER_TIME_STEPS[True][1])
+    out = {}
+    for name in REPAIRED:
+        fn = runners[name][0]
+        fn(device, FILTER_TIME_STEPS[True][0], True)  # warm-up
+        fn(device, FILTER_TIME_STEPS[False][0], False)
+        per_step = {}
+        for graph, (short, long) in FILTER_TIME_STEPS.items():
+            rounds = FILTER_TIME_ROUNDS if graph else 1
+            ms = [sorted(cuda_ms(lambda: fn(device, k, graph), 1, lambda: None)[0]
+                         for _ in range(rounds))[rounds // 2] for k in (short, long)]
+            per_step[graph] = (ms[1] - ms[0]) / (long - short)
+        out[name] = per_step
+        log(f"[filters] {name} f64 on {card}: replay {per_step[True]:.4f} ms per step, eager "
+            f"{per_step[False]:.4f} ms per step ({per_step[False] / per_step[True]:.1f}x; CUDA "
+            f"events, capture included; replay: medians of {FILTER_TIME_ROUNDS} calls of "
+            f"{FILTER_TIME_STEPS[True][0]} and {FILTER_TIME_STEPS[True][1]} steps, eager: calls "
+            f"of {FILTER_TIME_STEPS[False][0]} and {FILTER_TIME_STEPS[False][1]} steps)")
+    return out
+
+
+BANK_TARGETS, BANK_STEPS = 4_096, 1_000  # a surveillance picture's targets x steps
+BANK_ONSET = (300, 600)  # maneuver onsets, uniform
+# examples/maneuvering_target.py:56-57's weave, 0.8 sin(0.6 k) per step
+# of its dt 0.5, kept in seconds (1.6 units/s² at 1.2 rad/s) at this
+# model's dt 0.1: 0.16 sin(0.12 k + φ) per step.  Taken per step as 0.8
+# sin(0.6 k) instead, the position wobble (~0.23) is a third of R's σ,
+# and the IMM does not beat the quiet CKF (on an H100: 0.5338 vs
+# 0.5128).
+BANK_WEAVE, BANK_FREQ = 0.16, 0.12
+BANK_GLITCH, BANK_GLITCH_SIGMA = 0.05, 8.0  # examples/robust_estimation.py:64-66
+BANK_ROUNDS = 3  # timed calls after a warm-up
+
+
+def phase_bank(gt, torch, device, card):
+    """[bank]: a 4,096-target IMM bank and a Huber bank on the card, f32,
+    as one `ops.scan.scan` each whose step runs the whole [B, ...] batch
+    (the serving posture of tests/test_imm.py:197 and
+    tests/test_robust.py:68).  The model is bench.py:make_model's; the
+    IMM's agile mode has w = 2.0 I (100x), transitions
+    [[0.97, 0.03], [0.03, 0.97]].  Each target flies ballistic under the
+    quiet Q from x0 ~ N(0, I); from an onset in [300, 600) each velocity
+    component gains the weave BANK_WEAVE sin(BANK_FREQ k + φ) per step
+    (examples/maneuvering_target.py:51-58); R = 0.5 I.  The Huber streams
+    are the same with 5% of the measurement components glitched by 8σ.
+    Gates: the IMM's post-onset position RMS below the quiet CKF's; the
+    Huber bank's position RMS below the plain CKF's before the onset,
+    where the quiet model is the truth's (examples/robust_estimation.py
+    makes its claim on a matched model; the whole-run RMS is printed
+    beside it); all finite.  Prints
+    per bank ms per run (CUDA events, median of BANK_ROUNDS after a
+    warm-up, capture included), target-steps/s, kernels per step and
+    busy share (torch.profiler), the run's peak memory, and the IMM's
+    median onset-detection delay."""
+    import numpy as np
+
+    from gokalman_tpu_torch.filters import imm, vanilla
+    from gokalman_tpu_torch.ops.bank import tile
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    b, steps = BANK_TARGETS, BANK_STEPS
+    quiet, st = main_model(gt, torch, device)
+    i3, z3 = np.eye(3), np.zeros((3, 3))
+    _, q_agile, _ = gt.c2d.van_loan(np.block([[z3, i3], [z3, z3]]), np.vstack([z3, i3]),
+                                    2.0 * i3, 0.1, check_nyquist=False, dtype=f32)
+    agile = quiet._replace(noise=gt.noise.awgn(q_agile, 0.5 * i3, dtype=f32))
+    imodel, ist = imm.new(np.zeros(6), np.eye(6), [quiet, agile],
+                          np.array([[0.97, 0.03], [0.03, 0.97]]))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    randn = lambda *s: torch.randn(s, generator=gen, dtype=f32, device=device)
+    onset = torch.randint(BANK_ONSET[0], BANK_ONSET[1], (b,), generator=gen, device=device)
+    phase = 2 * math.pi * torch.rand((b, 3), generator=gen, dtype=f32, device=device)
+    ws = randn(steps, b, 6) @ quiet.noise.sqrt_q.T
+    x = randn(b, 6)
+    truth = torch.empty(steps, b, 6, dtype=f32, device=device)
+    for k in range(steps):
+        x = x @ quiet.f.T + ws[k]
+        weave = BANK_WEAVE * torch.sin(BANK_FREQ * k + phase) * (k >= onset)[:, None]
+        x = torch.cat([x[:, :3], x[:, 3:] + weave], dim=1)
+        truth[k] = x
+    del ws
+    pos = truth[..., :3]
+    ys = pos + randn(steps, b, 3) @ quiet.noise.sqrt_r.T
+    sigma = math.sqrt(0.5)
+    glitch = torch.rand((steps, b, 3), generator=gen, device=device) < BANK_GLITCH
+    ys_glitched = ys + glitch * (BANK_GLITCH_SIGMA * sigma) * torch.sign(randn(steps, b, 3))
+    rms = lambda est, mask: float(torch.sqrt(((est[..., :3] - pos) ** 2).sum(-1)[mask].mean()))
+    after = torch.arange(steps, device=device)[:, None] >= onset[None, :]
+    banks = {
+        "imm": lambda: imm.run(imodel, tile(ist, b), ys)[1],
+        "ckf quiet": lambda: vanilla.run(quiet, tile(st, b), ys)[1],
+        "huber": lambda: vanilla.run_robust(quiet, tile(st, b), ys_glitched, huber_k=1.345,
+                                            iters=2)[1],
+        "ckf glitched": lambda: vanilla.run(quiet, tile(st, b), ys_glitched)[1]}
+    res = {}
+    for name, call in banks.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        est = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - live
+        leaves = tensor_leaves(torch, est)
+        check(all(bool(torch.isfinite(a).all()) for a in leaves if a.is_floating_point()),
+              f"[bank] {name}: non-finite output")
+        check(est.state.shape == (steps, b, 6), f"[bank] {name}: state {tuple(est.state.shape)}")
+        tracker = name in ("imm", "ckf quiet")
+        err = rms(est.state, after if tracker else ~after)
+        extra = "" if tracker else f" (whole run {rms(est.state, after | ~after):.4f})"
+        if name == "imm":
+            agile_on = (est.mode_probs[..., 1] > 0.5) & after
+            found = agile_on.any(0)
+            first = torch.argmax(agile_on.float(), dim=0)
+            delay = (first - onset)[found]
+            extra = (f"; onset detected in {int(found.sum())} of {b} targets, median delay "
+                     f"{float(delay.float().median()) if delay.numel() else float('nan'):g} "
+                     f"steps (agile probability > 0.5)")
+        del est, leaves
+        times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(BANK_ROUNDS))
+        ms = times[len(times) // 2]
+        prof = launch_profile(call)
+        busy = ("kernels and device busy not measured" if prof is None else
+                f"{prof[0] / steps:.1f} kernels per step, device busy {prof[2]:.3f} ms of the "
+                f"{ms:.3f} ms call (share {prof[2] / ms:.1%}); top kernels " + "; ".join(prof[3]))
+        rate = b * steps / ms * 1e3
+        res[name] = dict(rms=err, ms=ms, rate=rate, peak=peak, prof=prof)
+        log(f"[bank] {name}: B = {b}, T = {steps}, f32 on {card}: position RMS {err:.4f}"
+            f"{' after onset' if tracker else ' before onset'}; {ms:.3f} ms per run "
+            f"(CUDA events, median of {BANK_ROUNDS} after a warm-up; min {times[0]:.3f}, max "
+            f"{times[-1]:.3f}; capture included), {rate:.4g} target-steps/s; peak memory of the "
+            f"run {peak / 2**30:.3f} GiB; {busy}{extra}")
+    check(res["imm"]["rms"] < res["ckf quiet"]["rms"],
+          f"[bank] IMM post-onset RMS {res['imm']['rms']} not below the quiet CKF's "
+          f"{res['ckf quiet']['rms']} (examples/maneuvering_target.py)")
+    check(res["huber"]["rms"] < res["ckf glitched"]["rms"],
+          f"[bank] Huber RMS before onset {res['huber']['rms']} not below the CKF's "
+          f"{res['ckf glitched']['rms']} (examples/robust_estimation.py)")
+    log(f"[bank] gates: IMM {res['imm']['rms']:.4f} < quiet CKF {res['ckf quiet']['rms']:.4f} "
+        f"after onset; Huber {res['huber']['rms']:.4f} < CKF {res['ckf glitched']['rms']:.4f} on "
+        f"the glitched streams before onset; phase {time.perf_counter() - t_phase:.1f} s host clock on {card}")
+    return res
+
+
 def kernel_entry(name, counts, max_err, ms, plain_ms, library_ms, bound_ms, bound_by,
                  **extra):
     return {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -2121,6 +2640,9 @@ def run():
     timed("od", phase_od, gt, torch, device, card)
     timed("nonlinear", phase_nonlinear, gt, torch, device, card)
     timed("enkf l96", phase_enkf_l96, gt, torch, device, card)
+    timed("filters", phase_filters_time, gt, torch, device, card)
+    timed("robust", phase_robust, gt, torch, device, card)
+    timed("bank", phase_bank, gt, torch, device, card)
     log(f"[time] phases (s, host clock): {json.dumps(secs)}; whole script "
         f"{time.perf_counter() - t_run:.1f} s")
 

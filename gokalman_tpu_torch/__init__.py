@@ -23,7 +23,12 @@ runners, each step one CUDA graph replayed per step by `ops.scan.scan`),
 the nonlinear and ensemble filters (`ukf`, `srukf`, `filters.quadrature`,
 `enkf`, `particle`, `rbpf`; their callables act on the stacked sigma
 points, members or particles, and their random draws are made before
-the scan), and the tracing and timing helpers (`profiling`).
+the scan), the robust, adaptive and mixture filters (`vanilla`'s gated,
+Huber, steady-state, fading, correlated and out-of-sequence forms,
+`filters.constrained`, `hinf`, `setmembership`, `adaptive`, `studentt`,
+`imm`, `gsf`; a bank of independent trackers is one scan whose step is
+mapped over the targets, `ops.bank`), and the tracing and timing
+helpers (`profiling`).
 
 Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
@@ -31,12 +36,13 @@ Importing the package builds and loads no kernel: the CUDA sources in
 
 from . import (c2d, chisquare, convert, dynamics, filters, linalg, montecarlo, noise, od,
                ops, parallel, profiling, truth, types, workloads)
-from .filters import enkf, particle, rbpf, srukf, ukf, vanilla
+from .filters import adaptive, enkf, gsf, imm, particle, rbpf, srukf, ukf, vanilla
 from .types import FilterType
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "adaptive",
     "c2d",
     "chisquare",
     "convert",
@@ -44,6 +50,8 @@ __all__ = [
     "enkf",
     "FilterType",
     "filters",
+    "gsf",
+    "imm",
     "linalg",
     "montecarlo",
     "noise",

@@ -14,7 +14,13 @@ the card:
 - `record_from_numpy`: any model, state or estimate of the information,
   square-root, SRIF and hybrid filters, a state of the UKF, SR-UKF,
   quadrature, EnKF, particle and RBPF filters, a quadrature `Rule` or a
-  `noise.BatchNoise`, from its fields in order.
+  `noise.BatchNoise`, from its fields in order; and the records of the
+  robust, adaptive and mixture filters: `imm.Model` (its stacked modes a
+  `vanilla.Model` from `model_from_numpy` of the stacked arrays, then
+  `trans`) and `imm.State`, `gsf.Model` / `State`, `hinf.Model` (with
+  `theta` and `s_bar`), `setmembership.Model` / `State`,
+  `studentt.Model`, and `adaptive.State` / `VBState` (their `kf` a
+  `vanilla.State` from `state_from_numpy` or `record_from_numpy`).
 - `stations_from_numpy`, `measurements_from_numpy`,
   `trajectory_from_numpy`: the dynamics records (`dynamics.stations.
   Station`, `dynamics.propagate.MeasurementSet` / `Trajectory`), so that
@@ -73,17 +79,20 @@ def record_from_numpy(cls, fields: Sequence, *, dtype=torch.float64, device=None
     """Port-side record `cls` from a JAX record's fields in field order.
 
     `cls` is a port `Model`, `State` or `Estimate` NamedTuple, e.g. of
-    `filters.information`, `sqrt`, `srif` or `hybrid`, and `fields`
-    are the JAX record's fields: floating arrays become `dtype` tensors,
-    integer and bool arrays (the step counter `k`) keep their integer or
-    bool type, a nested sequence (a `Noise`) becomes a `Noise` of
-    tensors, and None and Python scalars (`meas_size`, `non_tri_r`) stay
-    as they are.
+    `filters.information`, `sqrt`, `srif`, `hybrid`, `imm` or `hinf`,
+    and `fields` are the JAX record's fields: floating arrays become
+    `dtype` tensors, integer and bool arrays (the step counter `k`) keep
+    their integer or bool type, a nested sequence (a `Noise`) becomes a
+    `Noise` of tensors, and None and Python scalars (`meas_size`,
+    `non_tri_r`, `lam_iters`, `dof`) stay as they are.  A field that is
+    already a tensor or a port record (a nested record converted first,
+    such as `imm.Model`'s modes or `adaptive.State`'s `kf`) is kept.
     """
     device = resolve_device(device)
 
     def conv(a):
-        if a is None or isinstance(a, (bool, int, float)):
+        if a is None or isinstance(a, (bool, int, float, torch.Tensor)) or (
+                type(a).__module__.startswith(__package__ + ".")):
             return a
         if isinstance(a, (tuple, list)):
             return Noise(*(conv(b) for b in a))

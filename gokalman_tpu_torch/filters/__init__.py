@@ -1,10 +1,15 @@
-"""Filters of the port: the vanilla CKF core, the reference's other
-filters (information, square-root, SRIF, hybrid CKF/EKF, batch least
-squares), the backward smoothers, and the nonlinear and ensemble tier
-(UKF, SR-UKF, quadrature, EnKF / ETKF / EnKS, particle + FFBS, RBPF)."""
+"""Filters of the port: the vanilla CKF core with its robust and
+classic variants, the reference's other filters (information,
+square-root, SRIF, hybrid CKF/EKF, batch least squares), the backward
+smoothers, the nonlinear and ensemble tier (UKF, SR-UKF, quadrature,
+EnKF / ETKF / EnKS, particle + FFBS, RBPF), and the robust, adaptive and
+mixture tier (constrained, H∞, set-membership, adaptive, Student-t,
+IMM, GSF)."""
 
-from . import (batch, enkf, hybrid, information, particle, quadrature, rbpf, smoothing, sqrt,
-               srif, srukf, ukf, vanilla)
+from . import (adaptive, batch, constrained, enkf, gsf, hinf, hybrid, imm, information, particle,
+               quadrature, rbpf, setmembership, smoothing, sqrt, srif, srukf, studentt, ukf,
+               vanilla)
 
-__all__ = ["batch", "enkf", "hybrid", "information", "particle", "quadrature", "rbpf",
-           "smoothing", "sqrt", "srif", "srukf", "ukf", "vanilla"]
+__all__ = ["adaptive", "batch", "constrained", "enkf", "gsf", "hinf", "hybrid", "imm",
+           "information", "particle", "quadrature", "rbpf", "setmembership", "smoothing", "sqrt",
+           "srif", "srukf", "studentt", "ukf", "vanilla"]

@@ -25,6 +25,7 @@ import torch
 from .. import linalg
 from .._device import resolve_device
 from ..noise import Noise
+from ..ops.scan import scan
 from .vanilla import joseph_update
 
 
@@ -186,26 +187,24 @@ def step(model: Model, state: State, phi, htilde, real_obs, computed_obs, has_me
 
 @linalg.highp
 def run(model: Model, state: State, phis, htildes, real_obs, computed_obs, has_meas,
-        gammas=None, snc_mask=None, ekf=False, ekf_mask=None):
-    """Loop the masked step over prepared (Φ, H̃) trajectories ([T, ...]
-    each; has_meas, snc_mask and ekf_mask [T] bool).  `ekf_mask` flips
-    CKF/EKF per step, the OD harness's runtime EKF trigger
-    (hybrid_test.go:270-279).  Returns (final state, Estimate of
-    [T, ...])."""
+        gammas=None, snc_mask=None, ekf=False, ekf_mask=None, *, graph: bool = True):
+    """The masked step over prepared (Φ, H̃) trajectories ([T, ...]
+    each; has_meas, snc_mask and ekf_mask [T] bool), as one
+    `ops.scan.scan`.  `ekf_mask` flips CKF/EKF per step, the OD
+    harness's runtime EKF trigger (hybrid_test.go:270-279).  Returns
+    (final state, Estimate of [T, ...])."""
     dev = state.p.device
-    phis, htildes, real_obs, computed_obs = (_as(a, state.p) for a in
-                                             (phis, htildes, real_obs, computed_obs))
-    masks = [None if m is None else torch.as_tensor(m, device=dev)
-             for m in (has_meas, snc_mask, ekf_mask)]
-    gammas = None if gammas is None else _as(gammas, state.p)
-    ests = []
-    for t in range(phis.shape[0]):
-        hm, sm, em = (None if m is None else m[t] for m in masks)
-        state, est = step(model, state, phis[t], htildes[t], real_obs[t],
-                          computed_obs[t], hm, None if gammas is None else gammas[t],
-                          sm, ekf if em is None else em)
-        ests.append(est)
-    return state, Estimate(*(torch.stack(f) for f in zip(*ests)))
+    xs = tuple(_as(a, state.p) for a in (phis, htildes, real_obs, computed_obs)) + tuple(
+        None if m is None else torch.as_tensor(m, device=dev)
+        for m in (has_meas, snc_mask, ekf_mask)) + (
+        None if gammas is None else _as(gammas, state.p),)
+
+    def body(carry, x):
+        phi, htilde, real, comp, hm, sm, em, gamma = x
+        return step(model, carry, phi, htilde, real, comp, hm, gamma, sm,
+                    ekf if em is None else em)
+
+    return scan(body, state, xs, graph=graph)
 
 
 @linalg.highp
@@ -222,7 +221,7 @@ def smooth_all(estimates: Estimate) -> Estimate:
 
 
 @linalg.highp
-def smooth_all_rts(estimates: Estimate) -> Estimate:
+def smooth_all_rts(estimates: Estimate, *, graph: bool = True) -> Estimate:
     """Optimal (RTS) fixed-interval smoother over a hybrid-CKF arc,
     SNC-armed steps included.  The recorded P̄_{k+1} (pred_covariance)
     already holds Γ Q Γᵀ as the filter applied it, so the gain
@@ -235,15 +234,16 @@ def smooth_all_rts(estimates: Estimate) -> Estimate:
     # Align step k with (Φ_{k+1}, P̄_{k+1}).
     phi_next = torch.roll(estimates.phi, -1, dims=0)
     ppred_next = torch.roll(estimates.pred_covariance, -1, dims=0)
-    x_next, p_next = xs[-1], ps[-1]
-    outs = []
-    for k in range(t - 1, -1, -1):
-        phi_n, ppred_n, x_k, p_k = phi_next[k], ppred_next[k], xs[k], ps[k]
+
+    def body(carry, x):
+        x_next, p_next = carry
+        phi_n, ppred_n, x_k, p_k, last = x
         c = linalg.solve_psd(ppred_n, phi_n @ p_k.T).T
         x_sm = x_k + c @ (x_next - phi_n @ x_k)
         p_sm = linalg.sym(p_k + c @ (p_next - ppred_n) @ c.T)
-        x_next = torch.where(is_last[k], x_k, x_sm)
-        p_next = torch.where(is_last[k], p_k, p_sm)
-        outs.append((x_next, p_next))
-    xs_sm, ps_sm = (torch.stack(o[::-1]) for o in zip(*outs))
+        out = (torch.where(last, x_k, x_sm), torch.where(last, p_k, p_sm))
+        return out, out
+
+    _, (xs_sm, ps_sm) = scan(body, (xs[-1], ps[-1]), (phi_next, ppred_next, xs, ps, is_last),
+                             reverse=True, graph=graph)
     return estimates._replace(state=xs_sm, covariance=ps_sm)

@@ -15,6 +15,7 @@ import torch
 from .. import linalg
 from .._device import resolve_device
 from ..noise import Noise, measurement_sample
+from ..ops.scan import scan
 from .vanilla import mask_measurement
 
 
@@ -168,16 +169,19 @@ def step(model: Model, state: State, measurement, control=None, v=None,
 @linalg.highp
 def run(model: Model, state: State, measurements, controls=None,
         generator: Optional[torch.Generator] = None, hs=None, rs=None,
-        meas_masks=None):
-    """Loop `step` over the time axis (the JAX package's lax.scan).
-    `generator` draws the measurement noise v of each step;
-    hs/rs/meas_masks are per-step measurement-model overrides
-    (vanilla.run).  Returns (final state, Estimate of [T, ...])."""
-    inputs = (measurements, controls, hs, rs, meas_masks)
-    ests = []
-    for t in range(len(measurements)):
-        meas, ctrl, h_k, r_k, mask = (None if a is None else a[t] for a in inputs)
-        v = None if generator is None else measurement_sample(model.noise, generator)
-        state, est = step(model, state, meas, ctrl, v, h_k, r_k, mask)
-        ests.append(est)
-    return state, Estimate(*(torch.stack(f) for f in zip(*ests)))
+        meas_masks=None, *, graph: bool = True):
+    """`step` over the time axis as one `ops.scan.scan` (the JAX
+    package's lax.scan).  `generator` draws the measurement noise v of
+    each step, all before the scan; hs/rs/meas_masks are per-step
+    measurement-model overrides (vanilla.run).  Returns (final state,
+    Estimate of [T, ...])."""
+    vs = None
+    if generator is not None:
+        vs = torch.stack([measurement_sample(model.noise, generator)
+                          for _ in range(len(measurements))])
+
+    def body(carry, xs):
+        meas, ctrl, v, h_k, r_k, mask = xs
+        return step(model, carry, meas, ctrl, v, h_k, r_k, mask)
+
+    return scan(body, state, (measurements, controls, vs, hs, rs, meas_masks), graph=graph)

@@ -1,9 +1,11 @@
 """Backward smoothing passes on torch tensors.
 
 Port of gokalman_tpu/filters/smoothing.py.  The JAX package's reverse
-`lax.scan`s become Python loops from T-1 down to 0; each step keeps the
-JAX body, its `jnp.where(is_last, ...)` included, so the arithmetic is
-the same and no step branches on a device value.  The Φ-inverse map is
+`lax.scan`s are reverse `ops.scan.scan`s (a Python loop on CPU tensors,
+one CUDA graph replayed per step on the card; `graph=False` runs the
+loop there); each step keeps the JAX body, its
+`jnp.where(is_last, ...)` included, so the arithmetic is the same and
+no step branches on a device value.  The Φ-inverse map is
 the reference's SmoothAll (hybrid.go:209-238, srif.go:165-192); the RTS,
 fixed-lag, fixed-point and two-filter smoothers go beyond it.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import linalg
+from ..ops.scan import scan
 
 
 def _as(a, like: torch.Tensor) -> torch.Tensor:
@@ -24,12 +27,8 @@ def _is_last(t: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(t, device=like.device) == t - 1
 
 
-def _stack_reversed(outs):
-    return tuple(torch.stack(o[::-1]) for o in zip(*outs))
-
-
 @linalg.highp
-def phi_inverse_smoother(phis, states, covs):
+def phi_inverse_smoother(phis, states, covs, *, graph: bool = True):
     """Backward map x_k = Φ_{k+1}⁻¹ x_{k+1}, P_k = Φ_{k+1}⁻¹ P_{k+1} Φ_{k+1}⁻ᵀ
     over stacked [T, ...] tensors; the last entry is returned unchanged.
 
@@ -41,20 +40,22 @@ def phi_inverse_smoother(phis, states, covs):
     is_last = _is_last(t, states)
     # Φ at k+1 drives the map k+1 -> k: shift left by one step.
     phi_next = torch.roll(_as(phis, states), -1, dims=0)
-    x_next, p_next = states[-1], covs[-1]
-    outs = []
-    for k in range(t - 1, -1, -1):
-        s = linalg.inv(phi_next[k])
+
+    def body(carry, xs):
+        x_next, p_next = carry
+        phi, x_k, p_k, last = xs
+        s = linalg.inv(phi)
         x_sm = linalg.matvec(s, x_next)
         p_sm = linalg.sym(s @ p_next @ s.T)
-        x_next = torch.where(is_last[k], states[k], x_sm)
-        p_next = torch.where(is_last[k], covs[k], p_sm)
-        outs.append((x_next, p_next))
-    return _stack_reversed(outs)
+        out = (torch.where(last, x_k, x_sm), torch.where(last, p_k, p_sm))
+        return out, out
+
+    return scan(body, (states[-1], covs[-1]), (phi_next, states, covs, is_last),
+                reverse=True, graph=graph)[1]
 
 
 @linalg.highp
-def rts_smoother(phis, q, means, covs, offsets=None):
+def rts_smoother(phis, q, means, covs, offsets=None, *, graph: bool = True):
     """Rauch-Tung-Striebel fixed-interval smoother for time-varying
     transitions: given filtered (means [T, n], covs [T, n, n]), the
     per-step STMs (phis [T, n, n], phis[k] maps k-1 -> k) and process
@@ -70,23 +71,24 @@ def rts_smoother(phis, q, means, covs, offsets=None):
     phi_next = torch.roll(_as(phis, means), -1, dims=0)
     b_next = (torch.zeros_like(means) if offsets is None
               else torch.roll(_as(offsets, means), -1, dims=0))
-    x_next, p_next = means[-1], covs[-1]
-    outs = []
-    for k in range(t - 1, -1, -1):
-        phi, x_k, p_k = phi_next[k], means[k], covs[k]
+
+    def body(carry, xs):
+        x_next, p_next = carry
+        phi, b, x_k, p_k, last = xs
         p_pred = phi @ p_k @ phi.T + q
         # C = P_k Φᵀ P_pred⁻¹ via a solve on the transpose.
         c = linalg.solve_psd(p_pred, phi @ p_k.T).T
-        x_sm = x_k + c @ (x_next - (phi @ x_k + b_next[k]))
+        x_sm = x_k + c @ (x_next - (phi @ x_k + b))
         p_sm = linalg.sym(p_k + c @ (p_next - p_pred) @ c.T)
-        x_next = torch.where(is_last[k], x_k, x_sm)
-        p_next = torch.where(is_last[k], p_k, p_sm)
-        outs.append((x_next, p_next))
-    return _stack_reversed(outs)
+        out = (torch.where(last, x_k, x_sm), torch.where(last, p_k, p_sm))
+        return out, out
+
+    return scan(body, (means[-1], covs[-1]), (phi_next, b_next, means, covs, is_last),
+                reverse=True, graph=graph)[1]
 
 
 @linalg.highp
-def fixed_lag_smoother(phis, q, means, covs, lag: int):
+def fixed_lag_smoother(phis, q, means, covs, lag: int, *, graph: bool = True):
     """Fixed-lag smoother: x_{k | k+lag} for every k, refined by exactly
     `lag` future measurements (lag 0: the filter; lag >= T: the full RTS
     smoother).  Inputs as rts_smoother.
@@ -94,7 +96,8 @@ def fixed_lag_smoother(phis, q, means, covs, lag: int):
     The smoother gains C_j and predicted covariances depend only on j,
     so they are computed once, batched over j.  Then `lag` backward
     iterations run, each batched over every output index k with indexed
-    gathers, starting from the filtered estimate at min(k + lag, T-1).
+    gathers, starting from the filtered estimate at min(k + lag, T-1),
+    as one `ops.scan.scan` over the `lag` iterations.
     """
     if lag <= 0:
         return means, covs
@@ -108,8 +111,9 @@ def fixed_lag_smoother(phis, q, means, covs, lag: int):
 
     k = torch.arange(t, device=means.device)
     end = torch.clamp(k + lag, max=t - 1)
-    x_n, p_n = means[end], covs[end]
-    for i in range(lag):
+
+    def body(carry, i):
+        x_n, p_n = carry
         j = k + lag - i  # smoothing index j-1 from "next" index j
         valid = (j <= end) & (j >= k + 1)
         jc = torch.clamp(j, 1, t - 1)
@@ -117,13 +121,16 @@ def fixed_lag_smoother(phis, q, means, covs, lag: int):
         c, p_pred = cs[jc - 1], p_preds[jc - 1]
         x_s = x_f + linalg.matvec(c, x_n - linalg.matvec(phi, x_f))
         p_s = linalg.sym(p_f + c @ (p_n - p_pred) @ c.transpose(-1, -2))
-        x_n = torch.where(valid[:, None], x_s, x_n)
-        p_n = torch.where(valid[:, None, None], p_s, p_n)
-    return x_n, p_n
+        return (torch.where(valid[:, None], x_s, x_n),
+                torch.where(valid[:, None, None], p_s, p_n)), None
+
+    return scan(body, (means[end], covs[end]), torch.arange(lag, device=means.device),
+                graph=graph)[0]
 
 
 @linalg.highp
-def fixed_point_smoother(f, h, r, means, covs, innovations, pred_covs, k0: int):
+def fixed_point_smoother(f, h, r, means, covs, innovations, pred_covs, k0: int, *,
+                         graph: bool = True):
     """Fixed-point smoother: x_{k0 | k}, the refinement of ONE fixed past
     state as measurements keep arriving.  The augmented-state recursion
     without the augmentation: carry Σ_k = Cov(x_{k0}, x_k) and update with
@@ -142,7 +149,9 @@ def fixed_point_smoother(f, h, r, means, covs, innovations, pred_covs, k0: int):
     [T, n, n]): entry k >= k0 is x_{k0} given y_0..k, entries before k0
     pass the filtered trace through; the last entry equals RTS at k0.
     The step index and k0 are host integers, so the JAX body's
-    `where(k == k0)` / `where(k > k0)` choices are plain branches here.
+    `where(k < k0)` / `where(k == k0)` choices are made on the host: the
+    trace before k0 passes through, and one `ops.scan.scan` over
+    k0+1 ... T-1 carries the recursion seeded at k0.
     """
     t, n = means.shape
     f = _as(f, means).expand((t, n, n))
@@ -151,32 +160,32 @@ def fixed_point_smoother(f, h, r, means, covs, innovations, pred_covs, k0: int):
     r = _as(r, means)
     r = r.expand((t,) + r.shape[-2:])
     eye = torch.eye(n, dtype=means.dtype, device=means.device)
-    x_fp = p_fp = sigma = None
-    xs, ps = [], []
-    for k in range(t):
-        if k < k0:
-            xs.append(means[k])
-            ps.append(covs[k])
-            continue
-        if k == k0:
-            # Seed the recursion from the filtered moments.
-            x_fp, p_fp, sigma = means[k], covs[k], covs[k]
-        else:
-            sigma_pred = sigma @ f[k].T
-            s_k = h[k] @ pred_covs[k] @ h[k].T + r[k]
-            b_gain = linalg.solve_psd(s_k, (sigma_pred @ h[k].T).T).T
-            k_gain = linalg.solve_psd(s_k, (pred_covs[k] @ h[k].T).T).T
-            x_fp = x_fp + b_gain @ innovations[k]
-            p_fp = linalg.sym(p_fp - b_gain @ s_k @ b_gain.T)
-            sigma = sigma_pred @ (eye - k_gain @ h[k]).T
-        xs.append(x_fp)
-        ps.append(p_fp)
-    return torch.stack(xs), torch.stack(ps)
+    if k0 >= t:
+        return means, covs
+
+    def body(carry, xs):
+        x_fp, p_fp, sigma = carry
+        f_k, h_k, r_k, innov, p_pred = xs
+        sigma_pred = sigma @ f_k.T
+        s_k = h_k @ p_pred @ h_k.T + r_k
+        b_gain = linalg.solve_psd(s_k, (sigma_pred @ h_k.T).T).T
+        k_gain = linalg.solve_psd(s_k, (p_pred @ h_k.T).T).T
+        x_fp = x_fp + b_gain @ innov
+        p_fp = linalg.sym(p_fp - b_gain @ s_k @ b_gain.T)
+        sigma = sigma_pred @ (eye - k_gain @ h_k).T
+        return (x_fp, p_fp, sigma), (x_fp, p_fp)
+
+    # Seeded from the filtered moments at k0.
+    later = slice(k0 + 1, None)
+    _, (x_after, p_after) = scan(
+        body, (means[k0], covs[k0], covs[k0]),
+        (f[later], h[later], r[later], innovations[later], pred_covs[later]), graph=graph)
+    return (torch.cat([means[:k0 + 1], x_after]), torch.cat([covs[:k0 + 1], p_after]))
 
 
 @linalg.highp
 def two_filter_smoother(phis, q, hs, rs, measurements, means, covs,
-                        meas_masks=None, offsets=None):
+                        meas_masks=None, offsets=None, *, graph: bool = True):
     """Two-filter (Fraser-Potter / Mayne) fixed-interval smoother.  A
     backward information filter accumulates the likelihood of the
     future measurements p(y_{k+1:T-1} | x_k) as (Λ_k, λ_k), and the
@@ -213,23 +222,25 @@ def two_filter_smoother(phis, q, hs, rs, measurements, means, covs,
     eye = torch.eye(n, dtype=means.dtype, device=means.device)
     is_last = _is_last(t, means)
 
-    lam_mat = torch.zeros((n, n), dtype=means.dtype, device=means.device)
-    lam_vec = torch.zeros(n, dtype=means.dtype, device=means.device)
-    outs = []
-    for k in range(t - 1, -1, -1):
-        phi_n, b_n, h_k, r_k, m = phi_next[k], b_next[k], hs[k], rs[k], masks[k]
+
+    def body(carry, xs):
+        lam_mat, lam_vec = carry
+        phi_n, b_n, h_k, r_k, m, y, last = xs
         binv_lam = linalg.solve_qr(eye + lam_mat @ q, lam_mat)
         lam_fut = linalg.sym(phi_n.T @ binv_lam @ phi_n)
-        lam_vec_fut = phi_n.T @ linalg.solve_qr(eye + lam_mat @ q,
-                                                lam_vec - lam_mat @ b_n)
-        lam_fut = torch.where(is_last[k], torch.zeros_like(lam_fut), lam_fut)
-        lam_vec_fut = torch.where(is_last[k], torch.zeros_like(lam_vec_fut), lam_vec_fut)
+        lam_vec_fut = phi_n.T @ linalg.solve_qr(eye + lam_mat @ q, lam_vec - lam_mat @ b_n)
+        lam_fut = torch.where(last, torch.zeros_like(lam_fut), lam_fut)
+        lam_vec_fut = torch.where(last, torch.zeros_like(lam_vec_fut), lam_vec_fut)
         # Include this step's measurement for the next (earlier) k.
         rinv_h = linalg.solve_psd(r_k, h_k)
-        lam_mat = linalg.sym(lam_fut + m * h_k.T @ rinv_h)
-        lam_vec = lam_vec_fut + m * rinv_h.T @ ys[k]
-        outs.append((lam_fut, lam_vec_fut))
-    lam_futs, lam_vec_futs = _stack_reversed(outs)
+        return ((linalg.sym(lam_fut + m * h_k.T @ rinv_h), lam_vec_fut + m * rinv_h.T @ y),
+                (lam_fut, lam_vec_fut))
+
+    zeros = (torch.zeros((n, n), dtype=means.dtype, device=means.device),
+             torch.zeros(n, dtype=means.dtype, device=means.device))
+    _, (lam_futs, lam_vec_futs) = scan(body, zeros,
+                                       (phi_next, b_next, hs, rs, masks, ys, is_last),
+                                       reverse=True, graph=graph)
 
     # The combine is a map over k: one batched call.
     a = eye + covs @ lam_futs

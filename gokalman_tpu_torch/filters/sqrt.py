@@ -24,6 +24,7 @@ import torch
 from .. import linalg
 from .._device import resolve_device
 from ..noise import Noise, measurement_sample, process_sample
+from ..ops.scan import scan
 from .vanilla import mask_measurement
 
 
@@ -149,20 +150,21 @@ def step(model: Model, state: State, measurement, control=None, w2=None, v=None,
 @linalg.highp
 def run(model: Model, state: State, measurements, controls=None,
         generator: Optional[torch.Generator] = None, hs=None, rs=None,
-        meas_masks=None, go_upper_pred_factor: bool = False):
-    """Loop `step` over the time axis (the JAX package's lax.scan).
-    `generator` draws each step's w2, then v; hs/rs/meas_masks are
-    per-step measurement-model overrides (vanilla.run).  Returns
-    (final state, Estimate of [T, ...])."""
-    inputs = (measurements, controls, hs, rs, meas_masks)
-    ests = []
-    for t in range(len(measurements)):
-        meas, ctrl, h_k, r_k, mask = (None if a is None else a[t] for a in inputs)
-        w2 = v = None
-        if generator is not None:
-            w2 = process_sample(model.noise, generator)
-            v = measurement_sample(model.noise, generator)
-        state, est = step(model, state, meas, ctrl, w2, v, h_k, r_k, mask,
-                          go_upper_pred_factor=go_upper_pred_factor)
-        ests.append(est)
-    return state, Estimate(*(torch.stack(f) for f in zip(*ests)))
+        meas_masks=None, go_upper_pred_factor: bool = False, *, graph: bool = True):
+    """`step` over the time axis as one `ops.scan.scan` (the JAX
+    package's lax.scan).  `generator` draws each step's w2, then v, all
+    before the scan; hs/rs/meas_masks are per-step measurement-model
+    overrides (vanilla.run).  Returns (final state, Estimate of
+    [T, ...])."""
+    w2s = vs = None
+    if generator is not None:
+        draws = [(process_sample(model.noise, generator),
+                  measurement_sample(model.noise, generator)) for _ in range(len(measurements))]
+        w2s, vs = (torch.stack(d) for d in zip(*draws))
+
+    def body(carry, xs):
+        meas, ctrl, w2, v, h_k, r_k, mask = xs
+        return step(model, carry, meas, ctrl, w2, v, h_k, r_k, mask,
+                    go_upper_pred_factor=go_upper_pred_factor)
+
+    return scan(body, state, (measurements, controls, w2s, vs, hs, rs, meas_masks), graph=graph)

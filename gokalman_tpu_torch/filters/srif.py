@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from .. import linalg
+from ..ops.scan import scan
 from .._device import resolve_device
 from ..noise import Noise
 
@@ -232,20 +233,15 @@ def step(model: Model, state: State, phi, htilde, real_obs, computed_obs, has_me
 
 
 @linalg.highp
-def run(model: Model, state: State, phis, htildes, real_obs, computed_obs, has_meas):
-    """Loop the masked step over a trajectory of prepared (Φ, H̃) inputs
-    ([T, ...] each, has_meas [T] bool).  Returns (final state, Estimate
-    of [T, ...])."""
+def run(model: Model, state: State, phis, htildes, real_obs, computed_obs, has_meas, *,
+        graph: bool = True):
+    """The masked step over a trajectory of prepared (Φ, H̃) inputs
+    ([T, ...] each, has_meas [T] bool), as one `ops.scan.scan`.
+    Returns (final state, Estimate of [T, ...])."""
     as_t = lambda a: torch.as_tensor(a, dtype=state.r.dtype, device=state.r.device)
-    phis, htildes, real_obs, computed_obs = map(as_t, (phis, htildes, real_obs,
-                                                       computed_obs))
-    has_meas = torch.as_tensor(has_meas, device=state.r.device)
-    ests = []
-    for t in range(phis.shape[0]):
-        state, est = step(model, state, phis[t], htildes[t], real_obs[t],
-                          computed_obs[t], has_meas[t])
-        ests.append(est)
-    return state, Estimate(*(torch.stack(f) for f in zip(*ests)))
+    xs = tuple(map(as_t, (phis, htildes, real_obs, computed_obs))) + (
+        torch.as_tensor(has_meas, device=state.r.device),)
+    return scan(lambda carry, x: step(model, carry, *x), state, xs, graph=graph)
 
 
 @linalg.highp

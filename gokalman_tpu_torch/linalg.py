@@ -337,6 +337,48 @@ def inv_psd(a: torch.Tensor) -> torch.Tensor:
     return solve_psd(a, eye.expand(a.shape))
 
 
+@highp
+def solve_dare(f: torch.Tensor, h: torch.Tensor, q: torch.Tensor, r: torch.Tensor,
+               iterations: int = 25) -> torch.Tensor:
+    """Steady-state predicted covariance, the DARE
+    P = F P Fᵀ − F P Hᵀ (H P Hᵀ + R)⁻¹ H P Fᵀ + Q, by the
+    structure-preserving doubling algorithm (gokalman_tpu/linalg.py:
+    solve_dare): `iterations` doublings (25 ≈ 2²⁵ filter steps), in the
+    form X = AᵀXA − AᵀXB(R + BᵀXB)⁻¹BᵀXA + Q with A = Fᵀ.  The solves
+    are `solve` (LU, no host sync)."""
+    eye = torch.eye(f.shape[0], dtype=f.dtype, device=f.device)
+    a = f.T
+    g = h.T @ solve_psd(r, h)
+    x = q
+    for _ in range(iterations):
+        igx = eye + g @ x
+        a_next = a @ solve(igx, a)
+        g_next = g + a @ solve(igx, g @ a.T)
+        x_next = x + a.T @ x @ solve(igx, a)
+        a, g, x = a_next, sym(g_next), sym(x_next)
+    return x
+
+
+def golden_section(obj, lo, hi, iters: int):
+    """Branch-free golden-section minimizer of a unimodal scalar `obj`
+    on [lo, hi] (gokalman_tpu/linalg.py:golden_section): a fixed Python
+    loop of `iters` bodies, each with exactly one objective evaluation
+    (the surviving probe's value is carried: gr² = 1 − gr puts the
+    reused probe on the new grid point), the bracket chosen by
+    `torch.where` on the device.  Returns the bracket's midpoint."""
+    lo, hi = torch.as_tensor(lo), torch.as_tensor(hi)
+    gr = 0.5 * (math.sqrt(5.0) - 1.0)
+    c, d = hi - gr * (hi - lo), lo + gr * (hi - lo)
+    fc, fd = obj(c), obj(d)
+    for _ in range(iters):
+        go_left = fc < fd
+        lo, hi = torch.where(go_left, lo, c), torch.where(go_left, d, hi)
+        c, d = hi - gr * (hi - lo), lo + gr * (hi - lo)
+        f_new = obj(torch.where(go_left, c, d))
+        fc, fd = torch.where(go_left, f_new, fd), torch.where(go_left, fc, f_new)
+    return 0.5 * (lo + hi)
+
+
 def quadratic_form(v: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """vᵀ A v for a single vector."""
     return v @ (a @ v)
