@@ -45,7 +45,19 @@ nonlinear and ensemble filters (UKF, SR-UKF, quadrature, EnKF / ETKF /
 EnKS, particle + FFBS, RBPF) in f64 on small systems, each held card
 against CPU and graph against eager, with its syncs and kernels per
 step; and bench.py's Lorenz-96 EnKF leg at N = 1,024 x 300 cycles in
-f32, inside bench.py's RMSE gate, with its time per run.  Every phase
+f32, inside bench.py's RMSE gate, with its time per run.  Then the
+robust, adaptive and mixture filters in f64 (`[robust]`), the loops on
+`ops.scan.scan` timed replay against eager (`[filters]`), and the IMM
+and Huber banks of 4,096 targets (`[bank]`).  Then bench_nav.py's two
+rows (`[nav]`: a fleet of 512 vehicles x 200 IMU steps, f32, through
+the invariant EKF as a bank and its invariant RTS smoother, inside
+bench_nav.py's RMS gates, with steps/s, ms per run, kernels per step,
+busy share and peak memory) and examples/attitude.py's scenario through
+the MEKF in f64 with its five claims; and the attitude / navigation and
+factored runners (MEKF, USQUE, IEKF, its RTS, U-D, SISE, Schmidt, the
+consider analyses, MHE) in f64 on small systems (`[factored]`), each
+held card against CPU and graph against eager, with its syncs and
+kernels per step.  Every phase
 raises on failure; there is no CPU or plain-version fallback.  The
 last line of standard output is one JSON object with the device; the
 line before it lists each kernel's launches on the counted paths, its
@@ -2593,6 +2605,441 @@ def phase_bank(gt, torch, device, card):
     return res
 
 
+def nav_streams(np, rng, steps, dt, landmarks):
+    """A maneuvering IMU arc (tests/test_iekf.py's sinusoid body rates and
+    specific force) with noisy gyro / accel, landmark, GPS and body-velocity
+    streams and their masks, in numpy."""
+    g = np.array([0.0, 0.0, -9.81])
+    ks = np.arange(steps)
+    omegas = np.stack([0.3 * np.sin(0.05 * ks), 0.2 * np.cos(0.03 * ks),
+                       0.1 * np.sin(0.02 * ks + 1.0)], axis=1)
+    a_b = np.stack([0.5 * np.cos(0.04 * ks), 0.3 * np.sin(0.06 * ks),
+                    9.81 + 0.2 * np.sin(0.05 * ks)], axis=1)
+    r, v, p = np.eye(3), np.array([1.0, 0.0, 0.0]), np.zeros(3)
+    rs, vs, ps = [], [], []
+    for k in range(steps):
+        a_w = r @ a_b[k] + g
+        r, v, p = r @ rodrigues(np, omegas[k] * dt), v + a_w * dt, p + v * dt + 0.5 * a_w * dt**2
+        rs.append(r)
+        vs.append(v)
+        ps.append(p)
+    rs, vs, ps = map(np.array, (rs, vs, ps))
+    nl = landmarks.shape[0]
+    return dict(
+        gyro=omegas + 1e-3 * rng.standard_normal((steps, 3)),
+        accel=a_b + 1e-2 * rng.standard_normal((steps, 3)),
+        obs=(np.einsum("tji,lj->tli", rs, landmarks) - np.einsum("tji,tj->ti", rs, ps)[:, None]
+             + 0.1 * rng.standard_normal((steps, nl, 3))),
+        masks=rng.random((steps, nl)) < 0.6,
+        gps=ps + 0.5 * rng.standard_normal((steps, 3)), gps_masks=ks % 4 == 1,
+        vel=np.einsum("tji,tj->ti", rs, vs) + 0.05 * rng.standard_normal((steps, 3)),
+        vel_masks=ks % 3 == 2)
+
+
+def rodrigues(np, phi):
+    """SO(3) exponential of rotation vectors [..., 3] in numpy."""
+    th = np.linalg.norm(phi, axis=-1)[..., None, None]
+    k = phi / np.maximum(th[..., 0], 1e-300)
+    z = np.zeros_like(k[..., 0])
+    kx = np.stack([np.stack([z, -k[..., 2], k[..., 1]], -1), np.stack([k[..., 2], z, -k[..., 0]], -1),
+                   np.stack([-k[..., 1], k[..., 0], z], -1)], -2)
+    return np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+
+
+def factored_runners(gt, torch, steps):
+    """{name: fn(device, n, graph)} of every runner of the attitude /
+    navigation and factored slice, on small f64 systems: the first n of
+    `steps` steps, inputs made once on the host (numpy, seeded) and moved
+    to `device`, so the card and the CPU run the same numbers."""
+    import numpy as np
+
+    from gokalman_tpu_torch import od
+    from gokalman_tpu_torch.filters import hybrid, iekf, mekf, mhe, schmidt, sise, udu, vanilla
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 9)
+    spd = lambda k, s: (lambda a: s * (a @ a.T + k * np.eye(k)))(rng.standard_normal((k, k)))
+    n, p = 4, 2
+    sysm = dict(f=np.eye(n) + 0.05 * rng.standard_normal((n, n)), g=rng.standard_normal((n, 1)),
+                h=rng.standard_normal((p, n)), q=spd(n, 0.01), r=spd(p, 0.1),
+                x0=rng.standard_normal(n), p0=spd(n, 0.5))
+    refs = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    q_att = np.array([0.1, -0.2, 0.3, 0.9]) / np.linalg.norm([0.1, -0.2, 0.3, 0.9])
+    landmarks = np.array([[10.0, 0.0, 0.0], [0.0, 12.0, 0.0], [-8.0, -8.0, 5.0]])
+    nav = nav_streams(np, rng, steps, 0.05, landmarks)
+    host = dict(ys=rng.standard_normal((steps, p)), us=rng.standard_normal((steps, 1)),
+                ys3=rng.standard_normal((steps, 3)),
+                rs=np.repeat(sysm["r"][None], steps, 0) * np.linspace(0.5, 2.0, steps)[:, None, None],
+                masks=rng.random((steps, p)) > 0.3,
+                omegas=0.01 * rng.standard_normal((steps, 3)) + np.array([1e-3, 0.0, 7e-3]),
+                body=refs[None] + 3e-3 * rng.standard_normal((steps, 2, 3)),
+                att_masks=np.repeat((np.arange(steps) % 3 == 0)[:, None], 2, 1),
+                ws=0.05 * rng.standard_normal((steps, n)), vs=0.2 * rng.standard_normal((steps, p)),
+                mhe_ys=np.cos(0.3 * np.arange(steps))[:, None] + 0.1 * rng.standard_normal((steps, 2)),
+                mhe_masks=rng.random(steps) > 0.25,
+                station=rng.integers(0, 3, steps), has=np.arange(steps) % 4 != 2,
+                **{"nav_" + k: v for k, v in nav.items()})
+    cache = {}
+
+    def d(dev):
+        if dev in cache:
+            return cache[dev]
+        t = lambda a: torch.as_tensor(a, dtype=f64, device=dev)
+        e = {k: (torch.as_tensor(v, device=dev) if v.dtype.kind in "bi" else t(v))
+             for k, v in host.items()}
+        e["t"] = t
+        e["awgn"] = gt.noise.awgn(sysm["q"], sysm["r"], dtype=f64, device=dev)
+        e["mekf"] = mekf.new(q_att, np.diag([0.05**2] * 3 + [1e-3**2] * 3), refs, 5e-5, 1e-7,
+                             3e-3, 0.1, dtype=f64, device=dev)
+        cov9 = np.diag([1e-2] * 3 + [0.5] * 3 + [1.0] * 3)
+        nav_kw = dict(sigma_g=1e-3, sigma_a=1e-2, sigma_meas=0.1, dt=0.05, g=[0.0, 0.0, -9.81],
+                      sigma_gps=0.5, sigma_vel=0.05, dtype=f64, device=dev)
+        e["iekf"] = iekf.new(np.eye(3), [1.0, 0.0, 0.0], [0.3, -0.2, 0.1], cov9, landmarks,
+                             **nav_kw)
+        e["iekf_bias"] = iekf.new(np.eye(3), [1.0, 0.0, 0.0], [0.3, -0.2, 0.1],
+                                  np.diag(np.diag(cov9).tolist() + [1e-4] * 6), landmarks,
+                                  with_bias=True, sigma_bg=1e-4, sigma_ba=1e-3, **nav_kw)
+        e["udu"] = udu.new(sysm["x0"], sysm["p0"], sysm["f"], sysm["g"], sysm["h"], e["awgn"],
+                           dtype=f64, device=dev)
+        e["sise"] = sise.new(sysm["x0"], sysm["p0"], sysm["f"], None,
+                             np.vstack([sysm["h"], np.ones((1, n))]), np.ones((n, 1)),
+                             gt.noise.noiseless(sysm["q"], np.diag([0.1, 0.2, 0.3]), dtype=f64,
+                                                device=dev), dtype=f64, device=dev)
+        e["schmidt"] = schmidt.new(sysm["x0"], sysm["p0"], sysm["f"], sysm["h"], e["awgn"],
+                                   np.diag([0.3, 0.2]), b=0.1 * np.ones((n, 2)),
+                                   hc=np.array([[1.0, 0.0], [0.0, 1.0]]), g=sysm["g"], dtype=f64,
+                                   device=dev)
+        # a consider-blind CKF's trace, for consider_analysis and as a
+        # hybrid trace (Φ = F, H̃ = H) for consider_bias_analysis
+        cm, cs = vanilla.new(sysm["x0"], sysm["p0"], sysm["f"], None, sysm["h"], e["awgn"],
+                             dtype=f64, device=dev)
+        _, ckf = vanilla.run(cm, cs, e["ys"], graph=False)
+        e["phis"] = t(np.repeat(sysm["f"][None], steps, 0))
+        e["hts"] = t(np.repeat(sysm["h"][None], steps, 0))
+        e["ckf"] = ckf
+        e["trace"] = hybrid.Estimate(e["phis"], ckf.state, e["ys"], ckf.innovation,
+                                     ckf.innovation, ckf.covariance, ckf.pred_covariance,
+                                     ckf.gain, e["hts"])
+        cache[dev] = e
+        return e
+
+    def mekf_run(dev, k, graph, usque=False):
+        e = d(dev)
+        run = mekf.usque_run if usque else mekf.run
+        return run(*e["mekf"], e["omegas"][:k], e["body"][:k], e["att_masks"][:k], graph=graph)
+
+    def iekf_run(dev, k, graph, which="landmarks"):
+        e = d(dev)
+        m, s = e["iekf_bias"] if which == "biases" else e["iekf"]
+        x = lambda name: e["nav_" + name][:k]
+        streams = dict(body_obs=x("obs"), obs_masks=x("masks"))
+        if which == "gps":
+            streams = dict(gps_obs=x("gps"), gps_masks=x("gps_masks"))
+        elif which == "zupt":
+            streams = dict(vel_obs=torch.zeros_like(x("vel")), vel_masks=x("vel_masks"))
+        elif which == "biases":
+            streams.update(vel_obs=x("vel"), vel_masks=x("vel_masks"))
+        out = iekf.run(m, s, x("gyro"), x("accel"), **streams, graph=graph)
+        if which == "rts":
+            return iekf.rts_smoother(m, out[1], x("gyro"), x("accel"), graph=graph)
+        return out
+
+    def udu_run(dev, k, graph):
+        e = d(dev)
+        return udu.run(*e["udu"], e["ys"][:k], e["us"][:k], ws=e["ws"][:k], vs=e["vs"][:k],
+                       rs=e["rs"][:k], meas_masks=e["masks"][:k], graph=graph)
+
+    def sise_run(dev, k, graph):
+        e = d(dev)
+        return sise.run(*e["sise"], e["ys3"][:k], graph=graph)
+
+    def schmidt_run(dev, k, graph):
+        e = d(dev)
+        return schmidt.run(*e["schmidt"], e["ys"][:k], e["us"][:k], graph=graph)
+
+    def consider_analysis(dev, k, graph):
+        e = d(dev)
+        return schmidt.consider_analysis(
+            e["phis"][:k], e["hts"][:k], e["ckf"].gain[:k], e["awgn"].q, e["awgn"].r,
+            e["t"](np.diag([0.3, 0.2])), hc=e["t"](np.eye(2)), b=e["t"](0.1 * np.ones((n, 2))),
+            p0=e["t"](sysm["p0"]), graph=graph)
+
+    def consider_bias(dev, k, graph):
+        e = d(dev)
+        trace = hybrid.Estimate(*(a[:k] for a in e["trace"]))
+        res = od.ODResult(trace.state, trace.state, trace.covariance, trace.innovation,
+                          trace.state, e["has"][:k], trace)
+        meas = gt.dynamics.propagate.MeasurementSet(e["ys"][:k], e["hts"][:k], e["has"][:k],
+                                                    e["station"][:k])
+        return od.consider_bias_analysis(res, meas, e["t"](sysm["p0"]), e["awgn"].r,
+                                         e["t"]([1e-2, 2e-2, 5e-3]), graph=graph)
+
+    def mhe_run(dev, k, graph, project=False):
+        e = d(dev)
+        fx = lambda x: torch.stack([x[0] + 0.1 * x[1], x[1] - 0.1 * (torch.sin(x[0]) + 0.2 * x[1])])
+        hx = lambda x: torch.stack([torch.sqrt(1.0 + x[0] ** 2), x[1]])
+        nz = gt.noise.noiseless(np.diag([1e-3, 4e-3]), np.diag([2.5e-3, 1e-2]), dtype=f64,
+                                device=dev)
+        clip = (lambda x: torch.maximum(x, torch.full_like(x, -0.2))) if project else None
+        return mhe.run(fx, hx, e["t"]([0.6, 0.0]), e["t"](np.diag([0.3, 0.3])), nz,
+                       e["mhe_ys"][:k], e["mhe_masks"][:k], horizon=4, iters=2,
+                       project_fn=clip, graph=graph)
+
+    part = functools.partial
+    return {"mekf.run": mekf_run, "mekf.usque_run": part(mekf_run, usque=True),
+            "iekf.run": iekf_run, "iekf.run biases + ZUPT rows": part(iekf_run, which="biases"),
+            "iekf.run GPS": part(iekf_run, which="gps"), "iekf.run ZUPT": part(iekf_run, which="zupt"),
+            "iekf.rts_smoother": part(iekf_run, which="rts"), "udu.run R_k + mask": udu_run,
+            "sise.run": sise_run, "schmidt.run": schmidt_run,
+            "schmidt.consider_analysis": consider_analysis,
+            "od.consider_bias_analysis": consider_bias, "mhe.run": mhe_run,
+            "mhe.run projected": part(mhe_run, project=True)}
+
+
+FACTORED_STEPS = 16  # steps of each [factored] runner
+FACTORED_COUNT_STEPS = (2, 4)  # eager calls whose difference gives syncs and kernels per step
+FACTORED_RTOL, FACTORED_ATOL = 1e-9, 1e-12  # the card against the CPU, float64
+
+
+def phase_factored(gt, torch, device, card):
+    """[factored]: every runner of the attitude / navigation and factored
+    slice on the card in f64 (`factored_runners`, FACTORED_STEPS steps):
+    the CUDA-graph replay against the eager loop (bitwise, or within 1e-12
+    relative), the card against the CPU through the same port function on
+    the same inputs (FACTORED_RTOL / FACTORED_ATOL), the synchronizing
+    calls per eager step (0) and kernels per eager step."""
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    span = FACTORED_COUNT_STEPS[1] - FACTORED_COUNT_STEPS[0]
+    out = {}
+    for name, fn in factored_runners(gt, torch, FACTORED_STEPS).items():
+        t0 = time.perf_counter()
+        replay, eager, host = (fn(device, FACTORED_STEPS, True), fn(device, FACTORED_STEPS, False),
+                               fn(cpu, FACTORED_STEPS, False))
+        torch.cuda.synchronize()
+        pairs = list(zip(tensor_leaves(torch, replay), tensor_leaves(torch, eager)))
+        check(all(a.device == device for a, _ in pairs), f"[factored] {name} ran off the card")
+        check(all(bool(torch.isfinite(a).all()) for a, _ in pairs if a.is_floating_point()),
+              f"[factored] {name}: non-finite output")
+        graph_err = max((float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                         for a, b in pairs if a.is_floating_point() and not torch.equal(a, b)),
+                        default=0.0)
+        check(all(torch.equal(a, b) for a, b in pairs if not a.is_floating_point())
+              and graph_err <= 1e-12,
+              f"[factored] {name}: graph replay differs from the eager loop ({graph_err:.3g})")
+        card_err = 0.0
+        for a, b in zip(tensor_leaves(torch, replay), tensor_leaves(torch, host)):
+            a = a.cpu()
+            if a.is_floating_point():
+                card_err = max(card_err, _assert_close(f"[factored] {name} card vs CPU", a, b,
+                                                       FACTORED_RTOL, FACTORED_ATOL))
+            else:
+                check(torch.equal(a, b), f"[factored] {name}: card and CPU differ in {a.dtype}")
+        fn(device, FACTORED_COUNT_STEPS[0], False)
+        syncs = [synchronizing_calls(lambda: fn(device, k, False), warm=False)
+                 for k in FACTORED_COUNT_STEPS]
+        per_sync = (len(syncs[1]) - len(syncs[0])) / span
+        check(per_sync == 0, f"[factored] {name}: {per_sync:g} synchronizing calls per eager "
+              f"step {syncs[1][:2]}")
+        profs = [launch_profile(lambda: fn(device, k, False)) for k in FACTORED_COUNT_STEPS]
+        kernels = None if None in profs else (profs[1][0] - profs[0][0]) / span
+        replay_kind = "bitwise" if graph_err == 0.0 else f"{graph_err:.3g} relative"
+        log(f"[factored] {name}: graph replay vs eager loop {replay_kind}; card vs CPU max|diff| "
+            f"{card_err:.3g} (rtol {FACTORED_RTOL:g}, atol {FACTORED_ATOL:g}); {per_sync:g} "
+            "synchronizing calls per eager step; "
+            + ("kernels per eager step not measured" if kernels is None else
+               f"{kernels:.1f} kernels per eager step")
+            + f"; {time.perf_counter() - t0:.1f} s host clock")
+        out[name] = dict(graph_err=graph_err, card_err=card_err, syncs=per_sync, kernels=kernels)
+    log(f"[factored] {len(out)} runners, f64, {FACTORED_STEPS} steps, phase "
+        f"{time.perf_counter() - t_phase:.1f} s host clock on {card}")
+    return out
+
+
+# bench_nav.py:40-47's fleet: B vehicles x T IMU steps at dt 0.02, f32,
+# three landmarks with fixes at every 5th step, and its gates (:178, :213).
+NAV_FLEET, NAV_STEPS, NAV_DT = 512, 200, 0.02
+NAV_SIG_G, NAV_SIG_A, NAV_SIG_M = 2e-3, 2e-2, 0.05
+NAV_LANDMARKS = ((15.0, 0.0, 2.0), (0.0, 15.0, 1.0), (-12.0, -4.0, 3.0))
+NAV_RMS_GATE = 0.15  # m, tail position RMS
+NAV_ROUNDS = 3  # timed calls after a warm-up
+# examples/attitude.py's scenario: 10 Hz gyro for 10 minutes, a two-vector
+# star tracker at 1 Hz with a 60 s outage, 20 / -15 / 12 degrees off.
+ATT_DT, ATT_STEPS, ATT_SV, ATT_SU, ATT_SIG = 0.1, 6000, 5e-5, 1e-7, 3e-4
+ATT_BETA = (1.5e-3, -8e-4, 4e-4)
+
+
+def nav_fleet(np, seed):
+    """bench_nav.py:_gen_fleet with its seed taken as an argument: per-vehicle
+    bounded arcs (world velocity a chosen sinusoid, accelerometer = specific
+    force) with per-vehicle frequency factors; truth positions and the noisy
+    IMU and landmark streams, [T, B, ...] in numpy (all vehicles at once)."""
+    b, steps, dt = NAV_FLEET, NAV_STEPS, NAV_DT
+    rng = np.random.default_rng(seed)
+    t = np.arange(steps) * dt
+    ks = rng.uniform(0.8, 1.2, (b, 3))
+    om = np.stack([0.25 * np.sin(0.22 * t[None] * ks[:, :1]),
+                   0.2 * np.cos(0.14 * t[None] * ks[:, 1:2]),
+                   0.15 * np.sin(0.10 * t[None] * ks[:, 2:3] + 1.0)], axis=2)  # [B, T, 3]
+    vw = np.stack([1.2 * np.cos(0.12 * t[None] * ks[:, :1]),
+                   1.2 * np.sin(0.12 * t[None] * ks[:, 1:2]),
+                   0.3 * np.cos(0.25 * t[None] * ks[:, 2:3])], axis=2)
+    aw = np.gradient(vw, dt, axis=1)
+    g = np.array([0.0, 0.0, -9.81])
+    lms = np.array(NAV_LANDMARKS)
+    r, v, p = np.broadcast_to(np.eye(3), (b, 3, 3)), vw[:, 0].copy(), np.zeros((b, 3))
+    rs, ps, a_b = np.zeros((steps, b, 3, 3)), np.zeros((steps, b, 3)), np.zeros((steps, b, 3))
+    for k in range(steps):
+        ab = np.einsum("bji,bj->bi", r, aw[:, k] - g)
+        a_b[k] = ab
+        a_w = np.einsum("bij,bj->bi", r, ab) + g
+        p = p + v * dt + 0.5 * a_w * dt**2
+        v = v + a_w * dt
+        r = r @ rodrigues(np, om[:, k] * dt)
+        rs[k], ps[k] = r, p
+    om = om.transpose(1, 0, 2)
+    gyro = om + NAV_SIG_G / np.sqrt(dt) * rng.standard_normal(om.shape)
+    accel = a_b + NAV_SIG_A / np.sqrt(dt) * rng.standard_normal(a_b.shape)
+    obs = (np.einsum("tbji,lj->tbli", rs, lms) - np.einsum("tbji,tbj->tbi", rs, ps)[:, :, None]
+           + NAV_SIG_M * rng.standard_normal((steps, b, len(lms), 3)))
+    masks = np.zeros((steps, b, len(lms)), bool)
+    masks[::5] = True  # fixes at every 5th IMU step
+    return ps, gyro, accel, obs, masks
+
+
+def attitude_example(np, torch, att, seed=42):
+    """examples/attitude.py:simulate through the port's attitude functions
+    on the CPU in f64: truth quaternions, gyro, star-tracker vectors and
+    masks."""
+    rng = np.random.default_rng(seed)
+    refs = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    q = att.quat_identity(dtype=torch.float64, device="cpu")
+    qs, omegas, obs, masks = [], [], [], []
+    for k in range(ATT_STEPS):
+        t = k * ATT_DT
+        w_true = 0.01 * np.array([np.sin(0.005 * t), np.cos(0.008 * t), 0.7])
+        q = att.propagate_quat(q, torch.as_tensor(w_true), ATT_DT)
+        qs.append(q)
+        omegas.append(w_true + np.array(ATT_BETA) + ATT_SV / np.sqrt(ATT_DT) * rng.standard_normal(3))
+        a = att.attitude_matrix(q).numpy()
+        obs.append(refs @ a.T + ATT_SIG * rng.standard_normal((2, 3)))
+        on = (k % 10 == 0) and not (3000 <= k < 3600)
+        masks.append([on, on])
+    return refs, torch.stack(qs), np.array(omegas), np.array(obs), np.array(masks)
+
+
+def phase_nav(gt, torch, device, card):
+    """[nav]: bench_nav.py's two rows on the card and examples/attitude.py's
+    claims.  The fleet (`nav_fleet`, B = 512 x T = 200 IMU steps at dt 0.02,
+    f32, three landmarks, fixes at every 5th step) runs as a bank: `iekf.run`
+    on `ops.bank.tile(state, B)` with [T, B, ...] streams, one CUDA graph
+    per step, then `iekf.rts_smoother` over its trace.  Gates (bench_nav.py:
+    178, :213): the filter's tail position RMS < 0.15 m; the smoother's below
+    the filter's and < 0.15 m.  Each row: ms per run (CUDA events, median of
+    NAV_ROUNDS after a warm-up, capture included), bench_nav's steps/s,
+    kernels per step and device busy share (torch.profiler), the run's peak
+    memory.  Then the attitude example's scenario (6,000 gyro steps in f64)
+    through `mekf.run` on the card, with its five printed claims asserted:
+    tail error < 0.02 degrees, bias error < 5e-5 rad/s, tail NEES in (1, 7),
+    outage error growth > 2x, > 95% of outage steps inside 3.2 sigma."""
+    import numpy as np
+
+    from gokalman_tpu_torch.dynamics import attitude as att
+    from gokalman_tpu_torch.filters import iekf, mekf
+    from gokalman_tpu_torch.ops.bank import tile
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    b, steps = NAV_FLEET, NAV_STEPS
+    ps, gyro, accel, obs, masks = nav_fleet(np, SEED)
+    dev = lambda a: torch.as_tensor(a, dtype=None if a.dtype == bool else f32, device=device)
+    ps, gyro, accel, obs, masks = map(dev, (ps, gyro, accel, obs, masks))
+    cov0 = np.diag([1e-4] * 3 + [1e-2] * 3 + [1e-2] * 3)
+    model, st = iekf.new(np.eye(3), np.zeros(3), np.zeros(3), cov0, np.array(NAV_LANDMARKS),
+                         sigma_g=NAV_SIG_G, sigma_a=NAV_SIG_A, sigma_meas=NAV_SIG_M, dt=NAV_DT,
+                         g=[0.0, 0.0, -9.81], dtype=f32)
+    check(st.p.device == device, f"iekf.new put the state on {st.p.device}")
+    bank = tile(st, b)
+    tail = steps // 2
+    rms = lambda pos: float(torch.sqrt(((pos[tail:] - ps[tail:]) ** 2).sum(-1).mean()))
+    rows = {
+        "iekf_fleet": (lambda: iekf.run(model, bank, gyro, accel, obs, masks)[1], steps,
+                       "iekf_fleet_ins_steps_per_sec", "ins_steps/s"),
+        "iekf_smooth_pipeline": (
+            lambda: iekf.rts_smoother(model, iekf.run(model, bank, gyro, accel, obs, masks)[1],
+                                      gyro, accel),
+            2 * steps - 1, "iekf_smooth_pipeline_steps_per_sec", "smoothed_steps/s")}
+    res = {}
+    for name, (call, graph_steps, metric, unit) in rows.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        out = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - live
+        check(all(bool(torch.isfinite(a).all()) for a in tensor_leaves(torch, out)),
+              f"[nav] {name}: non-finite output")
+        pos = out.pos if name == "iekf_fleet" else out[2]
+        check(tuple(pos.shape) == (steps, b, 3), f"[nav] {name}: positions {tuple(pos.shape)}")
+        err = rms(pos)
+        del out, pos
+        times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(NAV_ROUNDS))
+        ms = times[len(times) // 2]
+        prof = launch_profile(call)
+        busy = ("kernels and device busy not measured" if prof is None else
+                f"{prof[0] / graph_steps:.1f} kernels per graph step ({graph_steps} steps), "
+                f"device busy {prof[2]:.3f} ms of the {ms:.3f} ms call (share {prof[2] / ms:.1%}); "
+                "top kernels " + "; ".join(prof[3]))
+        rate = b * steps / ms * 1e3
+        res[name] = dict(rms=err, ms=ms, rate=rate, peak=peak, prof=prof)
+        log(f"[nav] {name}: B = {b}, T = {steps}, f32 on {card}: tail position RMS {err:.4f} m; "
+            f"{metric} {rate:.6g} {unit}; {ms:.3f} ms per run (CUDA events, median of "
+            f"{NAV_ROUNDS} after a warm-up; min {times[0]:.3f}, max {times[-1]:.3f}; capture "
+            f"included); peak memory of the run {peak / 2**20:.1f} MiB; {busy}")
+    filt, smooth = res["iekf_fleet"]["rms"], res["iekf_smooth_pipeline"]["rms"]
+    check(filt < NAV_RMS_GATE, f"[nav] fleet tail RMS {filt} >= {NAV_RMS_GATE} (bench_nav.py:178)")
+    check(smooth < filt and smooth < NAV_RMS_GATE,
+          f"[nav] smoother tail RMS {smooth} not below the filter's {filt} and {NAV_RMS_GATE} "
+          "(bench_nav.py:213)")
+    log(f"[nav] gates: fleet {filt:.4f} m < {NAV_RMS_GATE}; smoother {smooth:.4f} m < filter "
+        f"and < {NAV_RMS_GATE}")
+
+    # examples/attitude.py on the card, f64.
+    t0 = time.perf_counter()
+    refs, qs, omegas, body, att_masks = attitude_example(np, torch, att)
+    qs = qs.to(device)
+    q0 = att.apply_error(qs[0], torch.as_tensor(np.deg2rad([20.0, -15.0, 12.0]), device=device))
+    p0 = np.diag([0.4**2] * 3 + [5e-3**2] * 3)
+    amodel, ast = mekf.new(q0, p0, refs, ATT_SV, ATT_SU, ATT_SIG, ATT_DT, dtype=torch.float64,
+                           device=device)
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
+    _, est = mekf.run(amodel, ast, f64(omegas), f64(body), torch.as_tensor(att_masks,
+                                                                            device=device))
+    errs = att.attitude_error_angle(est.q, qs).cpu().numpy()
+    err0 = float(att.attitude_error_angle(q0, qs[0]))
+    tail = slice(2000, 3000)  # converged, before the outage
+    tail_deg = np.rad2deg(errs[tail]).mean()
+    beta_err = np.abs(est.beta[2999].cpu().numpy() - np.array(ATT_BETA)).max()
+    dth = att.rotvec_from_quat(att.quat_compose(est.q, att.quat_conj(qs))).cpu().numpy()
+    ptt = est.covariance[:, :3, :3].cpu().numpy()
+    nees = np.einsum("ti,tij,tj->t", dth[tail], np.linalg.inv(ptt[tail]), dth[tail]).mean()
+    outage = slice(3000, 3600)
+    sigma = np.sqrt(np.trace(ptt[outage], axis1=1, axis2=2))
+    grow = np.rad2deg(errs[outage]).max() / tail_deg
+    inside = (np.linalg.norm(dth[outage], axis=1) < 3.2 * sigma).mean()
+    log(f"[nav] attitude example (examples/attitude.py, {ATT_STEPS} steps f64 on {card}): "
+        f"initial error {np.rad2deg(err0):.1f} deg; converged tail {tail_deg * 3600:.2f} arcsec "
+        f"({tail_deg:.3g} deg); bias error {beta_err:.3g} rad/s; tail NEES {nees:.3f}; outage "
+        f"error grew {grow:.1f}x, {inside:.1%} of outage steps inside 3.2 sigma; "
+        f"{time.perf_counter() - t0:.1f} s host clock")
+    check(np.rad2deg(err0) > 20.0 and tail_deg < 0.02, f"[nav] attitude tail error {tail_deg} deg")
+    check(beta_err < 5e-5, f"[nav] gyro bias error {beta_err}")
+    check(1.0 < nees < 7.0, f"[nav] attitude tail NEES {nees}")
+    check(grow > 2.0 and inside > 0.95, f"[nav] outage growth {grow}, inside {inside}")
+    log(f"[nav] phase {time.perf_counter() - t_phase:.1f} s host clock on {card}")
+    return res
+
+
 def kernel_entry(name, counts, max_err, ms, plain_ms, library_ms, bound_ms, bound_by,
                  **extra):
     return {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -2643,6 +3090,8 @@ def run():
     timed("filters", phase_filters_time, gt, torch, device, card)
     timed("robust", phase_robust, gt, torch, device, card)
     timed("bank", phase_bank, gt, torch, device, card)
+    timed("nav", phase_nav, gt, torch, device, card)
+    timed("factored", phase_factored, gt, torch, device, card)
     log(f"[time] phases (s, host clock): {json.dumps(secs)}; whole script "
         f"{time.perf_counter() - t_run:.1f} s")
 

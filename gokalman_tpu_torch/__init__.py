@@ -27,8 +27,12 @@ the scan), the robust, adaptive and mixture filters (`vanilla`'s gated,
 Huber, steady-state, fading, correlated and out-of-sequence forms,
 `filters.constrained`, `hinf`, `setmembership`, `adaptive`, `studentt`,
 `imm`, `gsf`; a bank of independent trackers is one scan whose step is
-mapped over the targets, `ops.bank`), and the tracing and timing
-helpers (`profiling`).
+mapped over the targets, `ops.bank`), the attitude and navigation tier
+(`dynamics.attitude`, `dynamics.liegroup`, `filters.mekf` with USQUE,
+`filters.iekf` with its invariant RTS smoother; an INS fleet is a bank),
+the factored and optimization-based filters (`filters.udu`, `sise`,
+`schmidt` with its consider analysis, `mhe`; `od.consider_bias_analysis`),
+and the tracing and timing helpers (`profiling`).
 
 Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
@@ -36,7 +40,7 @@ Importing the package builds and loads no kernel: the CUDA sources in
 
 from . import (c2d, chisquare, convert, dynamics, filters, linalg, montecarlo, noise, od,
                ops, parallel, profiling, truth, types, workloads)
-from .filters import adaptive, enkf, gsf, imm, particle, rbpf, srukf, ukf, vanilla
+from .filters import adaptive, enkf, gsf, imm, particle, rbpf, schmidt, srukf, ukf, vanilla
 from .types import FilterType
 
 __version__ = "0.1.0"
@@ -61,6 +65,7 @@ __all__ = [
     "particle",
     "profiling",
     "rbpf",
+    "schmidt",
     "srukf",
     "truth",
     "types",

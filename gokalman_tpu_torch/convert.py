@@ -21,6 +21,11 @@ the card:
   `theta` and `s_bar`), `setmembership.Model` / `State`,
   `studentt.Model`, and `adaptive.State` / `VBState` (their `kf` a
   `vanilla.State` from `state_from_numpy` or `record_from_numpy`).
+- `mekf_from_numpy`, `iekf_from_numpy`, `udu_from_numpy`,
+  `sise_from_numpy`, `schmidt_from_numpy`, `mhe_from_numpy`: a JAX
+  `Model`, `State` or `Estimate` of the attitude / navigation and
+  factored filters, as the port's record of the same name (a Schmidt
+  `Model`'s augmented `vanilla.Model` through `model_from_numpy`).
 - `stations_from_numpy`, `measurements_from_numpy`,
   `trajectory_from_numpy`: the dynamics records (`dynamics.stations.
   Station`, `dynamics.propagate.MeasurementSet` / `Trajectory`), so that
@@ -37,6 +42,7 @@ import torch
 from ._device import resolve_device
 from .dynamics.propagate import MeasurementSet, Trajectory
 from .dynamics.stations import Station
+from .filters import iekf, mekf, mhe, schmidt, sise, udu
 from .filters.vanilla import Estimate, Model, State
 from .montecarlo import MonteCarloRuns
 from .noise import Noise
@@ -101,6 +107,49 @@ def record_from_numpy(cls, fields: Sequence, *, dtype=torch.float64, device=None
                                device=device)
 
     return cls(*(conv(a) for a in fields))
+
+
+def _same_name(module, record, dtype, device, **fields):
+    """`module`'s record named as `record`'s class, from `record`'s
+    fields in order (`fields` replaces some by name)."""
+    cls = getattr(module, type(record).__name__)
+    values = [fields.get(name, value) for name, value in zip(cls._fields, record)]
+    return record_from_numpy(cls, values, dtype=dtype, device=device)
+
+
+def mekf_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.mekf` Model / State / Estimate as the port's."""
+    return _same_name(mekf, record, dtype, device)
+
+
+def iekf_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.iekf` Model / State / Estimate as the port's."""
+    return _same_name(iekf, record, dtype, device)
+
+
+def udu_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.udu` Model / State / Estimate as the port's."""
+    return _same_name(udu, record, dtype, device)
+
+
+def sise_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.sise` Model / State / Estimate as the port's."""
+    return _same_name(sise, record, dtype, device)
+
+
+def schmidt_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.schmidt` Model / State / Estimate as the port's;
+    a Model's augmented CKF model goes through `model_from_numpy`."""
+    if type(record).__name__ != "Model":
+        return _same_name(schmidt, record, dtype, device)
+    f, g, h, noise = record.aug
+    aug = model_from_numpy(f, g, h, *noise, dtype=dtype, device=device)
+    return _same_name(schmidt, record, dtype, device, aug=aug)
+
+
+def mhe_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.mhe` Estimate as the port's."""
+    return _same_name(mhe, record, dtype, device)
 
 
 def runs_from_numpy(estimate: Sequence, runs: int, steps: int, *,

@@ -210,17 +210,17 @@ def _round_robin(m: int, device) -> tuple:
 JACOBI_SWEEPS = 8  # fixed, so a step can be captured; B Bᵀ meets eigh's to 1e-12 at n = 3, 6
 
 
-def sqrt_factor_psd_jacobi(a: torch.Tensor) -> torch.Tensor:
-    """`sqrt_factor_psd` without `torch.linalg.eigh`, whose CUDA path
-    reads its `info` on the host (a sync, and so no CUDA-graph capture):
-    B = V sqrt(max(λ, 0)) from JACOBI_SWEEPS cyclic Jacobi sweeps for
-    small symmetric A ([..., n, n], n ≤ 8 or so).  Each round applies
+def eigh_jacobi(a: torch.Tensor):
+    """(λ [..., n], V [..., n, n]) with A = V diag(λ) Vᵀ for small
+    symmetric A ([..., n, n], n ≤ 8 or so), from JACOBI_SWEEPS cyclic
+    Jacobi sweeps: `torch.linalg.eigh` without its CUDA path's host read
+    of `info` (a sync, and so no CUDA-graph capture).  Each round applies
     n/2 disjoint rotations as one orthogonal matrix J (A ← Jᵀ A J,
     V ← V J; Numerical Recipes §11.1's angle): one gather of the round's
     (a_pp, a_qq, a_pq), a few elementwise kernels, one scatter of J's
     entries and three products.  Odd n is padded with a zero row and
-    column.  B Bᵀ equals eigh's clipped factor product; B's columns come
-    in another order and sign."""
+    column, which no rotation touches.  The eigenpairs come unsorted,
+    with the signs the rotations give."""
     n = a.shape[-1]
     m = n + n % 2
     if m != n:
@@ -244,9 +244,29 @@ def sqrt_factor_psd_jacobi(a: torch.Tensor) -> torch.Tensor:
             j[..., j_rows, j_cols] = torch.cat([c, c, s, -s], dim=-1)
             a = j.transpose(-1, -2) @ a @ j
             v = v @ j
-    w = torch.diagonal(a, dim1=-2, dim2=-1)
-    b = v * torch.sqrt(torch.clamp(w, min=0.0)).unsqueeze(-2)
-    return b[..., :n, :n]
+    return torch.diagonal(a, dim1=-2, dim2=-1)[..., :n], v[..., :n, :n]
+
+
+def sqrt_factor_psd_jacobi(a: torch.Tensor) -> torch.Tensor:
+    """`sqrt_factor_psd` from `eigh_jacobi`: B = V sqrt(max(λ, 0)), for a
+    step that runs inside a CUDA graph.  B Bᵀ equals eigh's clipped
+    factor product; B's columns come in another order and sign."""
+    w, v = eigh_jacobi(a)
+    return v * torch.sqrt(torch.clamp(w, min=0.0)).unsqueeze(-2)
+
+
+def pinv_sym(a: torch.Tensor) -> torch.Tensor:
+    """Moore-Penrose inverse of a small symmetric A from `eigh_jacobi`,
+    with `jnp.linalg.pinv`'s cutoff: eigenvalues whose magnitude (a
+    singular value of A) is at most 10·n·eps times the largest are
+    dropped.  `torch.linalg.pinv` goes through an SVD, which on the card
+    reads its `info` on the host."""
+    w, v = eigh_jacobi(a)
+    s = torch.abs(w)
+    cutoff = 10.0 * a.shape[-1] * torch.finfo(a.dtype).eps * s.amax(-1, keepdim=True)
+    keep = s > cutoff
+    inv_w = torch.where(keep, 1.0 / torch.where(keep, w, 1.0), 0.0)
+    return (v * inv_w.unsqueeze(-2)) @ v.transpose(-1, -2)
 
 
 def chol_or_jacobi_sqrt(a: torch.Tensor) -> torch.Tensor:

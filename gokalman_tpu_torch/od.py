@@ -11,9 +11,8 @@ the IEKF branch) compute both branches and pick with `torch.where`, and
 the observing station is read with `index_select`.  The full-state
 runners (`run_ukf_od`, `run_enkf_od`) push their sigma points or
 members through the flow and the station as one batch.
-
-Not ported yet: `consider_bias_analysis` (it waits for the port's
-schmidt filter).
+`consider_bias_analysis` reads a hybrid run's recorded trace into the
+Schmidt filter's consider analysis.
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ from .dynamics import gravity, integrators
 from .dynamics import stations as st
 from .dynamics.propagate import MeasurementSet
 from .filters import batch as batch_ls
-from .filters import hybrid, srif
+from .filters import hybrid, schmidt, srif
 from .noise import Noise
 from .ops.scan import scan
 
@@ -713,6 +712,45 @@ def run_batch_od(
                                    / torch.clamp(torch.sum(meas.has_meas), min=1)))
         x0_est, p0 = x0_est + sol.x0, sol.p0
     return x0_est, p0, torch.stack(rms_hist)
+
+
+def consider_bias_analysis(result: ODResult, meas: MeasurementSet, p0, r, bias_sigmas,
+                           range_row: int = 0, *, graph: bool = True):
+    """Consider covariance analysis of an OD run for unestimated
+    per-station range biases (TSB §6.6.2): the true error covariance of
+    the states a `run_hybrid_od` run produced, had the stations' ranges
+    carried biases of a-priori sigmas `bias_sigmas` [n_stations] (km).
+
+    It reads the run's recorded trace (the stacked hybrid `Estimate`'s
+    `phi`, `htilde`, `gain` and `pred_covariance`): the process noise the
+    filter applied is recovered as Q_k = P̄_k − Φ_k P_{k-1} Φ_kᵀ, so the
+    formal recursion reproduces `result.covariances`, and the bias
+    observation matrix is Hc_k = e_{range_row} ⊗ onehot(station_idx_k) on
+    measurement steps (and accepted ones, for a gated run), zero
+    elsewhere.  Returns `schmidt.AnalysisResult` ([T] stacks)."""
+    ests = result.estimates
+    phis, hs, gains = ests.phi, ests.htilde, ests.gain
+    t = phis.shape[0]
+    p_meas = hs.shape[1]
+    dtype, dev = phis.dtype, phis.device
+    bias_sigmas = torch.as_tensor(bias_sigmas, dtype=dtype, device=dev)
+    n_st = bias_sigmas.shape[0]
+    p0 = torch.as_tensor(p0, dtype=dtype, device=dev)
+
+    # The per-step additive process noise, exactly, from the trace.
+    prev_cov = torch.cat([p0[None], result.covariances[:-1]], dim=0)
+    q_eff = ests.pred_covariance - torch.einsum("tij,tjk,tlk->til", phis, prev_cov, phis)
+
+    onehot = (torch.arange(n_st, device=dev)[None, :] == meas.station_idx[:, None]).to(dtype)
+    onehot = onehot * meas.has_meas[:, None].to(dtype)
+    if result.accepted is not None:
+        onehot = onehot * result.accepted[:, None].to(dtype)
+    hc = torch.zeros((t, p_meas, n_st), dtype=dtype, device=dev)
+    hc[:, range_row, :] = onehot
+    return schmidt.consider_analysis(phis, hs, gains, q_eff, torch.as_tensor(r, dtype=dtype,
+                                                                             device=dev),
+                                     consider_cov=torch.diag(bias_sigmas**2), hc=hc, p0=p0,
+                                     graph=graph)
 
 
 def rms_errors(result: ODResult, truth_states, tail: float = 0.5):
