@@ -32,14 +32,19 @@ mapped over the targets, `ops.bank`), the attitude and navigation tier
 `filters.iekf` with its invariant RTS smoother; an INS fleet is a bank),
 the factored and optimization-based filters (`filters.udu`, `sise`,
 `schmidt` with its consider analysis, `mhe`; `od.consider_bias_analysis`),
-and the tracing and timing helpers (`profiling`).
+the association trackers and unlabelled random-finite-set filters
+(`filters.pdaf`, `imm.run_pdaf`, `jpda`, `tracker`, `phd`, `cphd`, `pmb`;
+a bank of scenes is one scan, `workloads.tracking` makes
+bench_tracking.py's banks), track-to-track fusion (`filters.fusion`),
+the OSPA / GOSPA metrics (`diagnostics`), and the tracing and timing
+helpers (`profiling`).
 
 Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
 """
 
-from . import (c2d, chisquare, convert, dynamics, filters, linalg, montecarlo, noise, od,
-               ops, parallel, profiling, truth, types, workloads)
+from . import (c2d, chisquare, convert, diagnostics, dynamics, filters, linalg, montecarlo,
+               noise, od, ops, parallel, profiling, truth, types, workloads)
 from .filters import adaptive, enkf, gsf, imm, particle, rbpf, schmidt, srukf, ukf, vanilla
 from .types import FilterType
 
@@ -50,6 +55,7 @@ __all__ = [
     "c2d",
     "chisquare",
     "convert",
+    "diagnostics",
     "dynamics",
     "enkf",
     "FilterType",

@@ -26,6 +26,13 @@ the card:
   `Model`, `State` or `Estimate` of the attitude / navigation and
   factored filters, as the port's record of the same name (a Schmidt
   `Model`'s augmented `vanilla.Model` through `model_from_numpy`).
+- `pdaf_from_numpy`, `jpda_from_numpy`, `tracker_from_numpy`,
+  `phd_from_numpy`, `cphd_from_numpy`, `pmb_from_numpy`: a JAX `Model`,
+  `State` or `Estimate` of the association trackers and the unlabelled
+  random-finite-set filters as the port's record of the same name (a
+  `Model`'s `kf` through `model_from_numpy`; JPDA's event table as
+  int64, torch's index type); `fusion_from_numpy` a `FusedEstimate`,
+  `gospa_from_numpy` a `diagnostics.GospaResult`.
 - `stations_from_numpy`, `measurements_from_numpy`,
   `trajectory_from_numpy`: the dynamics records (`dynamics.stations.
   Station`, `dynamics.propagate.MeasurementSet` / `Trajectory`), so that
@@ -42,7 +49,9 @@ import torch
 from ._device import resolve_device
 from .dynamics.propagate import MeasurementSet, Trajectory
 from .dynamics.stations import Station
-from .filters import iekf, mekf, mhe, schmidt, sise, udu
+from . import diagnostics
+from .filters import (cphd, fusion, iekf, jpda, mekf, mhe, pdaf, phd, pmb, schmidt, sise, tracker,
+                      udu)
 from .filters.vanilla import Estimate, Model, State
 from .montecarlo import MonteCarloRuns
 from .noise import Noise
@@ -150,6 +159,60 @@ def schmidt_from_numpy(record, *, dtype=torch.float64, device=None):
 def mhe_from_numpy(record, *, dtype=torch.float64, device=None):
     """A JAX `filters.mhe` Estimate as the port's."""
     return _same_name(mhe, record, dtype, device)
+
+
+def _with_kf(module, record, dtype, device, **fields):
+    """`_same_name`, a `Model`'s `kf` (a JAX `vanilla.Model`) carried
+    across by `model_from_numpy`."""
+    if type(record).__name__ == "Model":
+        f, g, h, noise = record.kf
+        fields["kf"] = model_from_numpy(f, g, h, *noise, dtype=dtype, device=device)
+    return _same_name(module, record, dtype, device, **fields)
+
+
+def pdaf_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.pdaf` Model / State / Estimate as the port's."""
+    return _with_kf(pdaf, record, dtype, device)
+
+
+def jpda_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.jpda` Model / State / Estimate as the port's; the
+    event table becomes int64."""
+    extra = {}
+    if type(record).__name__ == "Model":
+        extra["events"] = torch.as_tensor(np.array(record.events), dtype=torch.int64,
+                                          device=resolve_device(device))
+    return _with_kf(jpda, record, dtype, device, **extra)
+
+
+def tracker_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.tracker` Model / State / Estimate as the port's."""
+    return _with_kf(tracker, record, dtype, device)
+
+
+def phd_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.phd` Model / State / Estimate as the port's."""
+    return _with_kf(phd, record, dtype, device)
+
+
+def cphd_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.cphd` Model / State / Estimate as the port's."""
+    return _with_kf(cphd, record, dtype, device)
+
+
+def pmb_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.pmb` Model / State / Estimate as the port's."""
+    return _with_kf(pmb, record, dtype, device)
+
+
+def fusion_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `fusion.FusedEstimate` as the port's."""
+    return _same_name(fusion, record, dtype, device)
+
+
+def gospa_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `diagnostics.GospaResult` as the port's."""
+    return _same_name(diagnostics, record, dtype, device)
 
 
 def runs_from_numpy(estimate: Sequence, runs: int, steps: int, *,

@@ -11,8 +11,9 @@ is `torch.func.vmap` of `vanilla.step` over [M]; the UKF flavor maps
 Every runner is one `ops.scan.scan`.  `run` also takes a bank of
 targets: a state with a leading target axis (`ops.bank.tile`) and
 measurements [T, B, p]; the whole [B, M, ...] batch then advances in
-one step (`ops.bank.per_target`).  The IMM-PDAF (`step_pdaf`) waits for
-the port of `pdaf`.
+one step (`ops.bank.per_target`).  The IMM-PDAF (`step_pdaf` /
+`run_pdaf`) runs `pdaf.step` per mode against the same candidate frame
+and weighs the modes by each one's association evidence.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from .. import linalg
 from .._device import resolve_device
 from ..ops.bank import per_target, vmap_leaves
 from ..ops.scan import scan
-from . import ukf, vanilla
+from . import pdaf, ukf, vanilla
 
 
 class Model(NamedTuple):
@@ -294,3 +295,53 @@ def rts_smoother(model: Model, ests: Estimate, *, graph: bool = True):
                                   (xs_f, ps_f, mus_f, is_last), reverse=True, graph=graph)
     x_c, p_c = torch.func.vmap(_moment_match)(xs_s, ps_s, mus_s)
     return x_c, p_c, mus_s
+
+
+@linalg.highp
+def step_pdaf(model: Model, state: State, candidates, cand_mask, pd, clutter_density, gate,
+              control=None):
+    """One IMM-PDAF cycle (Bar-Shalom's IMMPDAF): mixing, a full PDAF
+    update per mode (`pdaf.step` mapped over the stacked modes) against
+    the same padded frame (`candidates` [m_max, p], `cand_mask`
+    [m_max]), the mode probabilities updated by each mode's association
+    evidence `pdaf.Estimate.log_evidence`, the moment-matched output.
+    `pd`, `clutter_density` and `gate` as in `pdaf.new`: 0-d tensors of
+    the state's dtype and device (`run_pdaf` makes them before its scan;
+    numbers are converted here, outside a captured step only).  With
+    identical modes this is the single-model PDAF."""
+    eps = 1e-30
+    like = state.mu
+    as_t = lambda a: torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    pd, lam, gate = as_t(pd), as_t(clutter_density), as_t(gate)
+    c, xs_mix, ps_mix = _mix(state, model.trans, eps)
+
+    def mode_step(mode_model, x, p):
+        st, est = pdaf.step(pdaf.Model(mode_model, pd, lam, gate), pdaf.State(x, p, state.k),
+                            candidates, cand_mask, control)
+        return st.x, st.p, est.innovation, est.log_evidence
+
+    xs_new, ps_new, innov, lls = vmap_leaves(mode_step, model.modes, xs_mix, ps_mix)
+    mu, log_norm = _mode_posterior(c, lls, eps)
+    mean, cov = _moment_match(xs_new, ps_new, mu)
+    est = Estimate(mean, cov, mu, innov, log_norm, xs_new, ps_new)
+    return State(xs_new, ps_new, mu, state.k + 1), est
+
+
+@linalg.highp
+def run_pdaf(model: Model, state: State, candidates, cand_masks, pd, clutter_density, gate,
+             controls=None, *, graph: bool = True):
+    """`step_pdaf` over [T, m_max, p] frames as one `ops.scan.scan`; a
+    bank: state.xs [B, M, n], frames [T, B, m_max, p], masks
+    [T, B, m_max].  `pd`, `clutter_density` and `gate` become tensors
+    once, before the scan."""
+    like = state.mu
+    as_t = lambda a: torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    pd, lam, gate = as_t(pd), as_t(clutter_density), as_t(gate)
+    bank = state.xs.dim() == 3
+
+    def body(carry, xs):
+        cands, mask, u = xs
+        return per_target(lambda c, fr: step_pdaf(model, c, fr[0], fr[1], pd, lam, gate, u),
+                          bank)(carry, (cands, mask))
+
+    return scan(body, state, (candidates, cand_masks, controls), graph=graph)

@@ -1,5 +1,6 @@
-"""Reference workloads (numpy constants and schedules)."""
+"""Reference workloads: the jerk-car's numpy constants and schedules,
+and bench_tracking.py's scene banks (generated on the device)."""
 
-from . import jerkcar
+from . import jerkcar, tracking
 
-__all__ = ["jerkcar"]
+__all__ = ["jerkcar", "tracking"]
