@@ -57,15 +57,25 @@ the MEKF in f64 with its five claims; and the attitude / navigation and
 factored runners (MEKF, USQUE, IEKF, its RTS, U-D, SISE, Schmidt, the
 consider analyses, MHE) in f64 on small systems (`[factored]`), each
 held card against CPU and graph against eager, with its syncs and
-kernels per step.  Then ten of bench_tracking.py's rows (`[tracking]`:
-the PDAF, JPDA, GNN tracker, GM-PHD, GM-CPHD and PMB banks and the
-lifecycle rows of GM-PHD, GM-CPHD and the tracker, 256 scenes x 200
-frames in f32, each bank one scan whose step is mapped over the
-scenes, and track-to-track fusion over 51,200 problems in one vmap)
-inside bench_tracking.py's gates, with rates, ms per run, kernels per
-step, busy share and peak memory; and the tracking slice's runners
-and single calls in f64 (`[tracking parity]`), held card against CPU
-and graph against eager, with their syncs and kernels per step.  Every
+kernels per step.  Then bench_tracking.py's 14 rows (`[tracking]`:
+the PDAF, JPDA, GNN tracker, GM-PHD, GM-CPHD, PMB, LMB and δ-GLMB
+(Gibbs, on in-step Philox draws) banks and the lifecycle rows of GM-PHD,
+GM-CPHD, the tracker, LMB and the dense δ-GLMB, 256 scenes (the dense
+δ-GLMB 32) x 200 frames in f32, each bank one scan whose step is mapped
+over the scenes, and track-to-track fusion over 51,200 problems in one
+vmap) inside bench_tracking.py's gates (the pdaf row also inside the
+JPDA's maintained-RMS and loss gates), with rates, ms per run, kernels
+per step, busy share, peak memory and the δ-GLMB step's device time by
+stage; and the tracking slice's runners and single calls in f64
+(`[tracking parity]`), held card against CPU and graph against eager,
+with their syncs and kernels per step.  Last `[analysis]`: the
+diagnostics and system-identification tools in f64, card against CPU
+(the scan-based ones also graph against eager, with 0 syncs per step),
+and tests/test_differentiable.py's two cases on the port: its gradient
+through `vanilla.run` card against CPU (`ops.scan.scan` takes its loop
+under autograd and replays its graph under `no_grad`), and its
+gradient descent, each iteration's forward and backward one CUDA graph,
+inside the test's bands.  Every
 phase raises on failure; there is no CPU or plain-version fallback.  The
 last line of standard output is one JSON object with the device; the
 line before it lists each kernel's launches on the counted paths, its
@@ -3035,6 +3045,12 @@ TRACK_SCENES, TRACK_FRAMES = 256, 200
 TRACK_ROUNDS = 3  # timed calls after a warm-up
 TRACK_PROFILED_FRAMES = (5, 15)  # profiled runs whose difference is per step
 TRACK_OSPA_CHUNK = 16  # scenes per lifecycle OSPA call: 8! assignments per frame
+TRACK_GIBBS_KEYS = {"glmb": 21, "glmb_dense": 23}  # bench_tracking.py:677, :882
+GLMB_DENSE_SCENES = 32  # bench_tracking.py:976
+GLMB_STAGE_FRAME = 20  # the frame whose step `glmb_stages` breaks down
+# glmb_dense's run takes seconds (~1.2e10 Gumbels): within the script's
+# budget it is timed once after its warm-up.
+TRACK_ROUNDS_OF = {"glmb_dense": 1}
 
 
 def track_rms(torch, est_pos, truth_pos, tail, loss_thresh=None):
@@ -3114,15 +3130,19 @@ def lifecycle_scores(gt, np, torch, pos, est_mask, card, truth, alive):
 
 
 def tracking_rows(gt, np, torch, device):
-    """{row: (metric, unit, call, count, score)} of bench_tracking.py's
-    ten rows that need no labelled filter, at B = TRACK_SCENES x T =
-    TRACK_FRAMES f32 on `device`: `call(k)` runs the bank over its first k
-    frames, all by default (one scan, the step mapped over the scenes),
-    or, for fusion, one `torch.func.vmap` over every (scene, frame)
-    problem; `count` is what the rate counts (frames or fusions);
-    `score(out)` gives the row's read-outs with bench_tracking.py's gates
-    in "gates_pass"."""
-    from gokalman_tpu_torch.filters import cphd, fusion, jpda, pdaf, phd, pmb, tracker
+    """({row: (metric, unit, call, count, score)}, {row: GLMB stage
+    inputs}) of bench_tracking.py's 14 rows, at B = TRACK_SCENES x T =
+    TRACK_FRAMES f32 on `device` (glmb_dense: the lifecycle bank's first
+    GLMB_DENSE_SCENES scenes, as bench_tracking.py:849): `call(k)` runs
+    the bank over its first k frames, all by default (one scan, the step
+    mapped over the scenes), or, for fusion, one `torch.func.vmap` over
+    every (scene, frame) problem; `count` is what the rate counts (frames
+    or fusions); `score(out)` gives the row's read-outs with
+    bench_tracking.py's gates in "gates_pass".  The Gibbs rows draw in
+    the step from Philox under bench_tracking.py's key integers; the
+    second dict holds their (model, state, scenes, frames, masks, key)
+    for `glmb_stages`."""
+    from gokalman_tpu_torch.filters import cphd, fusion, glmb, jpda, lmb, pdaf, phd, pmb, tracker
     from gokalman_tpu_torch.ops.bank import tile
 
     wl = gt.workloads.tracking
@@ -3153,10 +3173,17 @@ def tracking_rows(gt, np, torch, device):
                     **kw)
 
     def pdaf_score(est):
+        """bench_tracking.py's pooled tail RMS gate (:449) and, beside it,
+        the JPDA's maintained-RMS and loss-rate gates (:331-351, :476):
+        the pooled RMS measures a lost scene, the pair tracking quality."""
         sq = ((est.state[-tail:, :, ::2] - truth1[-tail:, :, 0, ::2]) ** 2).mean((0, 2))  # [B]
         rms = float(torch.sqrt(sq.mean()))
-        lost = float((torch.sqrt(sq) > 2.0).sum())  # scenes whose own tail RMS exceeds 2
-        return {"tail_pos_rms": rms, "lost_scenes": lost, "gates_pass": rms < 1.0}
+        lost = torch.sqrt(sq) > 2.0  # scenes whose own tail RMS exceeds 2
+        loss = float(lost.float().mean())
+        kept = float(torch.sqrt(torch.where(lost, 0.0, sq).mean() / max(1.0 - loss, 1e-9)))
+        return {"tail_pos_rms": rms, "maintained_rms": kept, "track_loss_rate": loss,
+                "lost_scenes": float(lost.sum()),
+                "gates_pass": rms < 1.0 and kept < 1.0 and loss <= 0.02}
 
     rows["pdaf"] = ("pdaf_frames_per_sec", "frames/s",
                     bank(pdaf.run, m, s, cands1, masks1), frames, pdaf_score)
@@ -3273,25 +3300,113 @@ def tracking_rows(gt, np, torch, device):
         bank(tracker.run, mtl, stl, cands_lc, masks_lc), frames,
         lambda est: lc(est.states[..., ::2], est.status == tracker.CONFIRMED,
                        est.n_confirmed.to(f32)))
-    return rows
+
+    # The labelled filters (bench_tracking.py:632-702, :775-809, :841-900).
+    ml, sl = lmb.new(f, None, h, nz, *birth, m_max=wl.M_MAX, p_survival=0.99, p_detect=wl.PD,
+                     clutter=clutter, t_max=8, assoc="bp", bp_iters=10, **kw)
+    rows["lmb"] = ("lmb_frames_per_sec", "frames/s", bank(lmb.run, ml, sl, cands2, masks2),
+                   frames, lambda est: intensity_score(est.states[:, :, :4, ::2],
+                                                       est.existence[:, :, :4], est.n_targets,
+                                                       worst_gate=1.0))
+    mg, sg = glmb.new(f, None, h, nz, np.array([0.1, 0.1]), *birth[1:], m_max=wl.M_MAX,
+                      p_survival=0.99, p_detect=wl.PD, clutter=clutter, gate=16.0, t_max=4,
+                      h_max=16, assoc="gibbs", n_samples=16, gibbs_sweeps=4, **kw)
+    # A GLMB row's output carries its hypotheses' weights, not their logs
+    # (-inf in empty rows), so that every output is finite.
+    weights = lambda est: est._replace(hyp_log_w=torch.exp(est.hyp_log_w))
+    glmb_call = lambda k=t: weights(glmb.run(mg, tile(sg, b), cands2[:k], masks2[:k],
+                                             key=TRACK_GIBBS_KEYS["glmb"])[1])
+    # The δ-GLMB estimator: the best hypothesis at the MAP cardinality.
+    rows["glmb"] = ("glmb_frames_per_sec", "frames/s", glmb_call, frames,
+                    lambda est: intensity_score(est.map_states[..., ::2],
+                                                est.map_alive.to(f32), est.n_targets,
+                                                worst_gate=1.0))
+    mll, sll = lmb.new(f, None, h, nz, np.array([0.03, 0.03]), *birth[1:], m_max=wl.M_LC,
+                       p_survival=0.99, p_detect=wl.PD, clutter=clutter, t_max=12, assoc="bp",
+                       bp_iters=10, adaptive_birth_r=0.05, **kw)
+    rows["lmb_lifecycle"] = (
+        "lmb_lifecycle_frames_per_sec", "frames/s", bank(lmb.run, mll, sll, cands_lc, masks_lc),
+        frames, lambda est: lc(est.states[:, :, :8, ::2], est.existence[:, :, :8] > 0.5,
+                               est.n_confirmed.to(f32)))
+    # glmb_dense: one birth slot per spawn site at its birth-frame mean,
+    # the spawn jitter pushed through the dynamics to each birth frame.
+    births, _ = wl.lc_schedule(t)
+    bm = np.stack([np.linalg.matrix_power(f, int(k)) @ wl.LC_X0[i] for i, k in enumerate(births)])
+    bp_rows = []
+    for k in births:
+        pb = np.diag([0.25, 0.25 * 0.05**2, 0.25, 0.25 * 0.05**2])
+        for _ in range(int(k)):
+            pb = f @ pb @ f.T + q
+        bp_rows.append(pb + np.diag([1.0, 0.01, 1.0, 0.01]))
+    md, sd = glmb.new(f, None, h, nz, np.full(wl.N_LC, 0.03), bm, np.stack(bp_rows),
+                      m_max=wl.M_LC, p_survival=0.99, p_detect=wl.PD, clutter=clutter, gate=16.0,
+                      t_max=12, h_max=64, assoc="gibbs", n_samples=32, gibbs_sweeps=4, **kw)
+    bd = GLMB_DENSE_SCENES
+    dense_call = lambda k=t: weights(glmb.run(md, tile(sd, bd), cands_lc[:k, :bd],
+                                              masks_lc[:k, :bd],
+                                              key=TRACK_GIBBS_KEYS["glmb_dense"])[1])
+    rows["glmb_dense"] = (
+        "glmb_dense_frames_per_sec", "frames/s", dense_call, bd * t,
+        lambda est: lifecycle_scores(gt, np, torch, est.map_states[..., ::2], est.map_alive,
+                                     est.n_targets, truth_lc[:, :bd], alive))
+    stages = {"glmb": (mg, sg, b, cands2, masks2, TRACK_GIBBS_KEYS["glmb"]),
+              "glmb_dense": (md, sd, bd, cands_lc[:, :bd], masks_lc[:, :bd],
+                             TRACK_GIBBS_KEYS["glmb_dense"])}
+    return rows, stages
+
+
+def glmb_stages(torch, model, state, scenes, cands, masks, key, frame=GLMB_STAGE_FRAME):
+    """The δ-GLMB bank's step at `frame` (its state after the frames
+    before) broken into its stages, each mapped over the scenes as in
+    the scan's step and run once eagerly under torch.profiler: the
+    outcome scoring (`_score`: prediction, geometry, the log-weight
+    table), the Philox draws (`philox_gumbels`), the Gibbs sweeps
+    (`_gibbs_codes`), the children's scoring and top-h_max (`_children`)
+    and the prune and estimate (`_prune`).  Returns {stage: (kernels,
+    device busy ms)}; None where the profiler saw no device activity."""
+    from gokalman_tpu_torch.filters import glmb
+    from gokalman_tpu_torch.ops.bank import tile, vmap_leaves
+
+    st, _ = glmb.run(model, tile(state, scenes), cands[:frame], masks[:frame], key=key)
+    c, m = cands[frame], masks[frame]
+    ids = torch.arange(scenes, device=c.device)
+    shape = glmb.draws_shape(model, c.shape[1])
+    out = {}
+
+    def stage(name, fn):
+        prof = launch_profile(fn, cpu=False)
+        out[name] = None if prof is None else (prof[0], prof[2])
+        return fn()
+
+    sc = stage("score", lambda: vmap_leaves(
+        lambda s_, c_, m_: glmb._score(model, s_, c_, m_.bool()), st, c, m))
+    draws = stage("philox draws", lambda: vmap_leaves(
+        lambda k_, i_: glmb.philox_gumbels(key, k_, i_, shape, sc[0].dtype), st.k, ids))
+    gamma = stage("gibbs sweeps", lambda: vmap_leaves(
+        lambda l_, d_: glmb._gibbs_codes(model, l_, d_), sc[0], draws))
+    ch = stage("children", lambda: vmap_leaves(
+        lambda w_, l_, g_: glmb._children(model, w_, l_, g_), st.log_w, sc[0], gamma))
+    stage("prune", lambda: vmap_leaves(glmb._prune, st, *ch, *sc[1:]))
+    return out
 
 
 def phase_tracking(gt, torch, device, card):
-    """[tracking]: bench_tracking.py's ten rows that need no labelled
-    filter (`tracking_rows`), B = TRACK_SCENES scenes x T = TRACK_FRAMES
+    """[tracking]: bench_tracking.py's 14 rows (`tracking_rows`), B =
+    TRACK_SCENES scenes (glmb_dense GLMB_DENSE_SCENES) x T = TRACK_FRAMES
     frames in f32 on the card, each bank one `ops.scan.scan` whose step is
     mapped over the scenes (fusion: one `torch.func.vmap` over the 51,200
     problems, no scan).  The first call gives the row's read-outs, held to
     bench_tracking.py's gates; then ms per run (CUDA events, median of
-    TRACK_ROUNDS after that warm-up, capture included), the rate under
-    bench_tracking's metric name, kernels per step and device busy share
-    (torch.profiler: per step from the difference of runs over the first
-    TRACK_PROFILED_FRAMES frames; fusion: of the call), and the run's
-    peak memory."""
+    TRACK_ROUNDS after that warm-up, capture included; glmb_dense timed
+    once, TRACK_ROUNDS_OF), the rate under bench_tracking's metric name,
+    kernels per step and device busy share (torch.profiler: per step from the
+    difference of runs over the first TRACK_PROFILED_FRAMES frames;
+    fusion: of the call), and the run's peak memory; for the GLMB rows
+    the step's device time by stage (`glmb_stages`)."""
     import numpy as np
 
     t_phase = time.perf_counter()
-    rows = tracking_rows(gt, np, torch, device)
+    rows, stage_inputs = tracking_rows(gt, np, torch, device)
     torch.cuda.synchronize()
     log(f"[tracking] banks and models made on the card in {time.perf_counter() - t_phase:.1f} s "
         "host clock")
@@ -3308,7 +3423,8 @@ def phase_tracking(gt, torch, device, card):
                   if a.is_floating_point()), f"[tracking] {name}: non-finite output")
         scores = score(out)
         del out
-        times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(TRACK_ROUNDS))
+        rounds = TRACK_ROUNDS_OF.get(name, TRACK_ROUNDS)
+        times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(rounds))
         ms = times[len(times) // 2]
         if name == "t2t_fusion":
             prof = launch_profile(call, cpu=False)
@@ -3328,13 +3444,26 @@ def phase_tracking(gt, torch, device, card):
                    f"{TRACK_PROFILED_FRAMES[1]} frames") + "); top kernels " + "; ".join(prof[3]))
         rate = count / ms * 1e3
         res[name] = dict(ms=ms, rate=rate, peak=peak, prof=prof, **scores)
-        log(f"[tracking] {name}: B = {TRACK_SCENES}, T = {TRACK_FRAMES}, f32 on {card}: "
+        scenes = GLMB_DENSE_SCENES if name == "glmb_dense" else TRACK_SCENES
+        log(f"[tracking] {name}: B = {scenes}, T = {TRACK_FRAMES}, f32 on {card}: "
             + ", ".join(f"{k} {v:.4f}" for k, v in scores.items() if k != "gates_pass")
             + f", gates {'pass' if scores['gates_pass'] else 'FAIL'}; {metric} {rate:.6g} "
-            f"{unit}; {ms:.3f} ms per run (CUDA events, median of {TRACK_ROUNDS} after a "
-            f"warm-up; min {times[0]:.3f}, max {times[-1]:.3f}; capture included); peak memory "
-            f"of the run {peak / 2**20:.1f} MiB; {busy}; {time.perf_counter() - t0:.1f} s host "
-            "clock")
+            f"{unit}; {ms:.3f} ms per run (CUDA events, "
+            + (f"median of {rounds} after a warm-up; min {times[0]:.3f}, max {times[-1]:.3f}"
+               if rounds > 1 else "one call after a warm-up")
+            + f"; capture included); peak memory of the run {peak / 2**20:.1f} MiB; {busy}; "
+            f"{time.perf_counter() - t0:.1f} s host clock")
+        if name in stage_inputs:
+            parts = glmb_stages(torch, *stage_inputs[name])
+            res[name]["stages"] = parts
+            known = {k: v for k, v in parts.items() if v is not None}
+            total = sum(v[1] for v in known.values()) or float("nan")
+            log(f"[tracking] {name} step by stage (frame {GLMB_STAGE_FRAME}, each stage mapped "
+                "over the scenes and run once eagerly; device busy from torch.profiler): "
+                + "; ".join(f"{k} {v[0]} kernels, {v[1]:.3f} ms ({v[1] / total:.1%})"
+                            if v is not None else f"{k} not measured"
+                            for k, v in parts.items())
+                + f"; sum {total:.3f} ms of device time")
         check(scores["gates_pass"], f"[tracking] {name}: bench_tracking.py's gates failed "
               f"{scores}")
     log(f"[tracking] {len(res)} rows pass bench_tracking.py's gates; phase "
@@ -3345,15 +3474,17 @@ def phase_tracking(gt, torch, device, card):
 def tracking_runners(gt, torch, steps):
     """{name: (fn(device, n, graph), single)} of every runner of the
     tracking slice and its single calls (`associate_and_fuse`,
-    `covariance_intersection_n`, OSPA, GOSPA), on small f64 scenes:
+    `covariance_intersection_n`, OSPA, GOSPA), with the labelled filters
+    (LMB exact with adaptive birth and BP; δ-GLMB exact, Gibbs on in-step
+    Philox draws and Gibbs on given draws), on small f64 scenes:
     frames in bench_tracking.py's layout (two crossing targets, 3 clutter
     points, NaN in the padded slots), made once on the host (numpy,
     seeded) and moved to `device`, so the card and the CPU run the same
     numbers."""
     import numpy as np
 
-    from gokalman_tpu_torch.filters import cphd, fusion, imm, jpda, pdaf, phd, pmb, tracker
-    from gokalman_tpu_torch.filters import vanilla
+    from gokalman_tpu_torch.filters import (cphd, fusion, glmb, imm, jpda, lmb, pdaf, phd, pmb,
+                                            tracker, vanilla)
 
     wl = gt.workloads.tracking
     f64 = torch.float64
@@ -3423,6 +3554,39 @@ def tracking_runners(gt, torch, steps):
     def single(call):
         return (lambda dev, k, graph: call(d(dev))), True
 
+    # The labelled filters on the CPU tests' scenes and models
+    # (workloads.tracking.small_scene, LMB_CASES, GLMB_CASES).  A δ-GLMB
+    # run gives its estimates, weights and labels (the weights, not their
+    # logs, which are -inf in empty rows; the hypotheses' order among
+    # exactly equal weights is rounding).
+    lab = {}
+
+    def labelled(module, case, draws=False, key=None):
+        cases = wl.LMB_CASES if module.__name__.endswith(".lmb") else wl.GLMB_CASES
+        ctor, m_slots, seed = cases[case]
+
+        def fn(dev, k, graph):
+            if (module, case, dev) not in lab:
+                kw = dict(dtype=f64, device=dev)
+                cands, masks = wl.small_scene(seed, 2, steps, m_slots, nan_pad=True)
+                model, state = module.new(f, None, h, gt.noise.noiseless(q, r, **kw),
+                                          *wl.LABELLED_BIRTH, p_detect=wl.PD,
+                                          clutter=wl.N_CLUTTER / wl.BOX**2, **ctor, **kw)
+                g = None
+                if draws:
+                    u = np.random.default_rng(SEED + 11).random(
+                        (steps,) + module.draws_shape(model, m_slots))
+                    g = torch.as_tensor(-np.log(-np.log(u)), **kw)
+                lab[module, case, dev] = (model, state, torch.as_tensor(cands, **kw),
+                                          torch.as_tensor(masks, device=dev), g)
+            model, state, cands, masks, g = lab[module, case, dev]
+            if module.__name__.endswith(".lmb"):
+                return module.run(model, state, cands[:k], masks[:k], graph=graph)
+            st, est = module.run(model, state, cands[:k], masks[:k], key=key,
+                                 draws=None if g is None else g[:k], graph=graph)
+            return est._replace(hyp_log_w=torch.exp(est.hyp_log_w)), torch.exp(st.log_w), st.labels
+        return fn, False
+
     return {
         "pdaf.run": frames_run("pdaf", pdaf.run),
         "imm.run_pdaf": frames_run("imm", imm.run_pdaf, wl.PD, clutter, 16.0),
@@ -3432,6 +3596,11 @@ def tracking_runners(gt, torch, steps):
         "phd.run adaptive birth": frames_run("phd adaptive", phd.run),
         "cphd.run": frames_run("cphd", cphd.run),
         "pmb.run": frames_run("pmb", pmb.run),
+        "lmb.run exact adaptive": labelled(lmb, "exact adaptive"),
+        "lmb.run bp": labelled(lmb, "bp"),
+        "glmb.run exact": labelled(glmb, "exact wide"),
+        "glmb.run gibbs philox": labelled(glmb, "gibbs", key=SEED),
+        "glmb.run gibbs draws": labelled(glmb, "gibbs deep", draws=True),
         "fusion.associate_and_fuse": single(lambda e: fusion.associate_and_fuse(
             e["xa"], e["pa"], e["ma"], e["xb"], e["pb"], e["mb"], 16.0)),
         "fusion.covariance_intersection_n": single(
@@ -3460,6 +3629,312 @@ def phase_tracking_parity(gt, torch, device, card):
     return hold_runners("tracking parity", torch, device,
                         tracking_runners(gt, torch, TRACK_PARITY_STEPS), TRACK_PARITY_STEPS,
                         TRACK_COUNT_STEPS, TRACK_RTOL, TRACK_ATOL, card, TRACK_FLIP)
+
+
+def robot_data(np, case):
+    """tests/test_differentiable.py:_setup's system (the 2-state robot of
+    tests/fixtures.py, dt 0.1, position measured) and its measurements,
+    simulated there by JAX's PRNG and read from
+    tests/data/differentiable_setup.npz (tools/differentiable_data.py;
+    tests/test_torch_grad.py holds the file to `_setup`): (f, h, q_base,
+    r_base, ys [T, 1]) of "grad" (true scales 1 / 1, 400 steps) or
+    "descent" (2.0 / 0.5, 800 steps)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                        "differentiable_setup.npz")
+    with np.load(path) as z:
+        return z["f"], z["h"], z["q_base"], z["r_base"], z[f"{case}_ys"]
+
+
+def robot_nll(gt, torch, data, device, graph=True):
+    """nll(log_scales): −innovations log-likelihood of `vanilla.run` with
+    Q, R scaled by exp(log_scales) (tests/test_differentiable.py:38)."""
+    f, h, q_base, r_base, ys = (torch.as_tensor(a, dtype=torch.float64, device=device)
+                                for a in data)
+    x0 = torch.zeros(2, dtype=torch.float64, device=device)
+    p0 = torch.eye(2, dtype=torch.float64, device=device)
+
+    def nll(log_scales):
+        scales = torch.exp(log_scales)
+        nz = gt.noise.noiseless(scales[0] * q_base, scales[1] * r_base)
+        model, state = gt.vanilla.new(x0, p0, f, None, h, nz)
+        _, ests = gt.vanilla.run(model, state, ys, graph=graph)
+        return -gt.vanilla.innovations_log_likelihood(model, ests)
+    return nll
+
+
+def analysis_runners(gt, torch, steps):
+    """{name: (fn(device, n, graph), single)} of the analysis tools that
+    run a scan, on f64 inputs made once on the host (numpy, seeded): the
+    PCRB (deterministic and sampled Jacobians), the observability Gramian
+    (its `eigvalsh` once per call), the GLR detector (S from the gains by
+    `pinv` once per call, and from R on a trace with masked measurement
+    components), the EM E-step moments and three EM iterations, each over
+    the first n steps."""
+    import numpy as np
+
+    from gokalman_tpu_torch import diagnostics as dg
+    from gokalman_tpu_torch import sysid
+
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 12)
+    f = np.array([[1.0, 1.0], [0.0, 1.0]])
+    q = 5e-4 * np.array([[1 / 3, 1 / 2], [1 / 2, 1.0]])
+    h1, h2 = np.array([[1.0, 0.0]]), np.eye(2)
+    r1, r2 = np.array([[0.25]]), np.diag([0.25, 0.04])
+    lq = np.linalg.cholesky(q)
+    x, ys1, ys2 = np.zeros(2), [], []
+    for k in range(steps):
+        x = f @ x + lq @ rng.standard_normal(2) + (0.8 * np.array([0.0, 1.0]) if k == 25 else 0)
+        ys1.append(h1 @ x + 0.5 * rng.standard_normal(1))
+        ys2.append(x + np.array([0.5, 0.2]) * rng.standard_normal(2))
+    masks2 = np.ones((steps, 2), bool)
+    masks2[[7, 13], 1] = False
+    host = dict(ys1=np.array(ys1), ys2=np.array(ys2),
+                phis=np.broadcast_to(f, (steps, 2, 2)) + 0.01 * rng.standard_normal((4, steps, 2, 2)),
+                hs=np.broadcast_to(h1, (steps, 1, 2)) + 0.05 * rng.standard_normal((4, steps, 1, 2)))
+    cache = {}
+
+    def d(dev):
+        if dev not in cache:
+            e = {k: torch.as_tensor(v, dtype=f64, device=dev) for k, v in host.items()}
+            kw = dict(dtype=f64, device=dev)
+            e["kf1"] = gt.vanilla.new(np.zeros(2), np.eye(2), f, None, h1,
+                                      gt.noise.noiseless(q, r1, **kw), **kw)
+            e["kf2"] = gt.vanilla.new(np.zeros(2), np.eye(2), f, None, h2,
+                                      gt.noise.noiseless(q, r2, **kw), **kw)
+            e["em"] = gt.vanilla.new(np.zeros(2), np.eye(2), f, None, h1,
+                                     gt.noise.noiseless(3.0 * q, 0.3 * r1, **kw), **kw)
+            e["ests1"] = gt.vanilla.run(*e["kf1"], e["ys1"])[1]
+            e["ests2"] = gt.vanilla.run(*e["kf2"], e["ys2"],
+                                        meas_masks=torch.as_tensor(masks2, device=dev))[1]
+            e["mats"] = {k: torch.as_tensor(v, **kw) for k, v in
+                         dict(f=f, q=q, h1=h1, r1=r1, r2=r2, e=np.array([[0.0], [1.0]]),
+                              j0=np.eye(2)).items()}
+            cache[dev] = e
+        return cache[dev]
+
+    def run(call):
+        return (lambda dev, n, graph: call(d(dev), n, graph)), False
+
+    ests = lambda e, name, n: type(e[name])(*(a[:n] for a in e[name]))
+    return {
+        "diagnostics.pcrb": run(lambda e, n, g: dg.pcrb(
+            e["phis"][0, :n], e["hs"][0, :n], e["mats"]["q"], e["mats"]["r1"], e["mats"]["j0"],
+            graph=g)),
+        "diagnostics.pcrb sampled": run(lambda e, n, g: dg.pcrb(
+            e["phis"][:, :n], e["hs"][:, :n], e["mats"]["q"], e["mats"]["r1"], e["mats"]["j0"],
+            graph=g)),
+        "diagnostics.observability_gramian": run(lambda e, n, g: dg.observability_gramian(
+            e["phis"][0, :n], e["hs"][0, :n], e["mats"]["r1"], graph=g)),
+        "diagnostics.glr_detect": run(lambda e, n, g: dg.glr_detect(
+            e["mats"]["f"], e["mats"]["h1"], e["mats"]["e"], ests(e, "ests1", n), 25.0,
+            window=8, graph=g)),
+        "diagnostics.glr_detect r, masked": run(lambda e, n, g: dg.glr_detect(
+            e["mats"]["f"], torch.eye(2, dtype=f64, device=e["ys1"].device), e["mats"]["e"],
+            ests(e, "ests2", n), 25.0, window=8, r=e["mats"]["r2"], graph=g)),
+        "sysid.smoothed_moments": run(lambda e, n, g: sysid.smoothed_moments(
+            *e["kf1"], e["ys1"][:n], graph=g)),
+        "sysid.em_fit": run(lambda e, n, g: sysid.em_fit(
+            *e["em"], e["ys1"][:n], iters=3, fit=("q", "r", "x0"), graph=g))}
+
+
+ANALYSIS_STEPS = 48  # steps of each [analysis] runner
+ANALYSIS_COUNT_STEPS = (8, 16)  # eager calls whose difference gives syncs and kernels per step
+ANALYSIS_RTOL, ANALYSIS_ATOL = 1e-9, 1e-12  # the card against the CPU, float64
+GRAD_STEPS, DESCENT_STEPS = 400, 800  # tests/test_differentiable.py:15, :57 (the data file's)
+DESCENT_ITERS, DESCENT_LR = 150, 2e-3  # tests/test_differentiable.py:68-72
+DESCENT_WARMUP = 1  # eager iterations on a side stream before the capture
+
+
+def analysis_singles(gt, np, torch, device):
+    """{name: fn(device)} of the analysis tools that run no scan, on f64
+    inputs made once on the host; n4sid_fit gives its basis-free
+    invariants (singular values, A's trace and determinant, the Markov
+    parameters D, C A^k B, and R)."""
+    from gokalman_tpu_torch import diagnostics as dg
+    from gokalman_tpu_torch import sysid
+
+    rng = np.random.default_rng(SEED + 13)
+    nis = rng.chisquare(1, 300)
+    nis[180:] *= 8.0
+    inn = rng.standard_normal((300, 2)) @ np.array([[1.0, 0.9], [0.0, 0.3]])
+    pred = np.stack([np.eye(2) * (1.0 + 0.01 * k) for k in range(300)])
+    covs = pred.copy()
+    covs[7, 0, 0], covs[11, 0, 1] = np.nan, covs[11, 0, 1] + 1e-3
+    f3 = np.array([[1.0, 0.1, 0.0], [0.0, 1.0, 0.1], [0.0, 0.0, 1.0]])
+    fs, gs, hs = np.array([[0.9, 0.2], [0.0, 0.7]]), np.array([[0.0], [1.0]]), np.array([[1.0, 0.5]])
+    us = rng.choice([-1.0, 1.0], size=(1500, 1))
+    x, ys = np.zeros(2), []
+    for k in range(1500):
+        x = fs @ x + gs @ us[k] + 0.02 * rng.standard_normal(2)
+        ys.append(hs @ x + 0.05 * rng.standard_normal(1))
+    host = dict(nis=nis, inn=inn, pred=pred, covs=covs, f3=f3, h3=np.array([[0.0, 1.0, 0.0]]),
+                ys=np.array(ys), us=us, hsb=np.broadcast_to(np.eye(2), (300, 2, 2)),
+                rsb=np.broadcast_to(0.5 * np.eye(2), (300, 2, 2)))
+
+    def on(dev):
+        return {k: torch.tensor(v, dtype=torch.float64, device=dev) for k, v in host.items()}
+
+    def n4sid(e):
+        res = sysid.n4sid_fit(e["ys"], e["us"], order=2, horizon=8)
+        a = res.f  # its trace and determinant fix the eigenvalues
+        markov, a_k = [res.d], torch.eye(2, dtype=a.dtype, device=a.device)
+        for _ in range(5):
+            markov.append(res.h @ a_k @ res.g)
+            a_k = a_k @ a
+        return (res.singular_values, torch.trace(a), a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0],
+                torch.stack(markov), res.r)
+
+    return {
+        "diagnostics.nees_test": lambda e: dg.nees_test(e["nis"][:100], 1),
+        "diagnostics.innovation_whiteness": lambda e: dg.innovation_whiteness(e["inn"], lags=8),
+        "diagnostics.innovation_bias": lambda e: dg.innovation_bias(e["inn"] + 0.1, e["pred"],
+                                                                   e["hsb"], e["rsb"]),
+        "diagnostics.covariance_health": lambda e: dg.covariance_health(e["covs"]),
+        "diagnostics.divergence_onset": lambda e: dg.divergence_onset(e["nis"], 1, window=20),
+        "diagnostics.observability_matrix": lambda e: dg.observability_matrix(e["f3"], e["h3"]),
+        "linalg.is_symmetric": lambda e: torch.tensor(
+            [gt.linalg.is_symmetric(e["covs"][k]) for k in (6, 11)]),
+        "sysid.n4sid_fit invariants": n4sid,
+    }, on
+
+
+def captured(torch, device, fn, warmup):
+    """`fn()` captured once as a CUDA graph, after `warmup` eager calls on
+    a side stream (what the capture of a backward pass needs); returns
+    the graph's `replay`.  The caller undoes what the warm-up changed."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def phase_analysis(gt, torch, device, card):
+    """[analysis], float64: the analysis tools of `diagnostics` and
+    `sysid` and gradients through the port's scans.
+
+    - The tools that run a scan (`analysis_runners`) held by
+      `hold_runners`: replay vs eager, card vs CPU (ANALYSIS_RTOL /
+      ANALYSIS_ATOL), 0 synchronizing calls per step.
+    - The tools that run none (`analysis_singles`, and `chi2_interval`),
+      each one call on the card against the CPU, its synchronizing calls
+      counted (`eigvalsh`, `svd` and scipy read the card, once per call).
+    - tests/test_differentiable.py's two cases on the port: the gradient
+      of the innovations NLL through `vanilla.run` on the card against
+      the CPU's (1e-9 relative), with `ops.scan.scan` taking its loop on
+      the card while autograd records and replaying its graph under
+      `torch.no_grad()`; then the descent from scales (1, 1) towards the
+      true (2.0, 0.5), 150 steps of lr 2e-3 over 800 steps, each
+      iteration's forward and backward captured once as a CUDA graph and
+      replayed (after DESCENT_WARMUP eager iterations), inside the
+      test's bands (1.4, 2.8) and (0.35, 0.7), with its seconds."""
+    import numpy as np
+
+    from gokalman_tpu_torch.ops import scan as scan_mod
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = hold_runners("analysis", torch, device, analysis_runners(gt, torch, ANALYSIS_STEPS),
+                       ANALYSIS_STEPS, ANALYSIS_COUNT_STEPS, ANALYSIS_RTOL, ANALYSIS_ATOL, card)
+    singles, on = analysis_singles(gt, np, torch, device)
+    e_card, e_cpu = on(device), on(cpu)
+    for name, fn in singles.items():
+        t0 = time.perf_counter()
+        got, want = fn(e_card), fn(e_cpu)
+        syncs = synchronizing_calls(lambda: fn(e_card))
+        err = 0.0
+        for a, b in zip(tensor_leaves(torch, got), tensor_leaves(torch, want)):
+            check(a.device.type == device.type or name == "linalg.is_symmetric",
+                  f"[analysis] {name} ran off the card")
+            a = a.cpu()
+            if not a.is_floating_point():
+                check(torch.equal(a, b), f"[analysis] {name}: card and CPU differ in {a.dtype}")
+            else:
+                err = max(err, _assert_close(f"[analysis] {name} card vs CPU", a, b,
+                                             ANALYSIS_RTOL, ANALYSIS_ATOL))
+        log(f"[analysis] {name}: card vs CPU max|diff| {err:.3g} (rtol {ANALYSIS_RTOL:g}, atol "
+            f"{ANALYSIS_ATOL:g}); {len(syncs)} synchronizing calls per call; "
+            f"{time.perf_counter() - t0:.1f} s host clock")
+        out[name] = dict(card_err=err, syncs=len(syncs))
+    lo, hi = gt.diagnostics.chi2_interval(6, 1000)
+    log(f"[analysis] diagnostics.chi2_interval(6, 1000): ({lo:.12g}, {hi:.12g}) on the host (scipy)")
+
+    # Gradients: tests/test_differentiable.py:38 on the card against the CPU.
+    t0 = time.perf_counter()
+    data = robot_data(np, "grad")
+    taken = []
+    spy_of = scan_mod._graph_scan
+
+    def spy(*args):
+        res = spy_of(*args)
+        taken.append(res is not None)
+        return res
+
+    grads = []
+    scan_mod._graph_scan = spy
+    try:
+        for dev in (device, cpu):
+            p = torch.zeros(2, dtype=torch.float64, device=dev, requires_grad=True)
+            value = robot_nll(gt, torch, data, dev)(p)
+            value.backward()
+            grads.append((float(value.detach()), p.grad.cpu()))
+        check(taken == [False], f"[analysis] a scan under autograd replayed its graph: {taken}")
+        with torch.no_grad():
+            replayed = float(robot_nll(gt, torch, data, device)(
+                torch.zeros(2, dtype=torch.float64, device=device)))
+        check(taken == [False, True], f"[analysis] a no_grad scan did not replay its graph: {taken}")
+    finally:
+        scan_mod._graph_scan = spy_of
+    (v_card, g_card), (v_cpu, g_cpu) = grads
+    g_err = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    v_err = abs(v_card - v_cpu) / abs(v_cpu)
+    check(g_err <= 1e-9 and v_err <= 1e-9 and abs(replayed - v_card) <= 1e-12 * abs(v_card)
+          and bool((g_card.abs() > 0).all()),
+          f"[analysis] gradient card vs CPU {g_err:.3g}, value {v_err:.3g}, replay {replayed}")
+    log(f"[analysis] gradient of the innovations NLL through vanilla.run ({GRAD_STEPS} steps, "
+        f"tests/test_differentiable.py:38): card {g_card.tolist()} vs CPU {g_cpu.tolist()}, "
+        f"{g_err:.3g} relative (value {v_err:.3g}); the scan took its loop under autograd and "
+        f"replayed its CUDA graph under no_grad (value {abs(replayed - v_card) / abs(v_card):.3g} "
+        f"from the loop's); {time.perf_counter() - t0:.1f} s host clock")
+
+    # The descent (tests/test_differentiable.py:54), its iteration captured.
+    t0 = time.perf_counter()
+    nll = robot_nll(gt, torch, robot_data(np, "descent"), device, graph=False)
+    params = torch.zeros(2, dtype=torch.float64, device=device, requires_grad=True)
+
+    def iteration():
+        grad, = torch.autograd.grad(nll(params), params)
+        with torch.no_grad():
+            params.sub_(DESCENT_LR * grad)
+
+    replay = captured(torch, device, iteration, DESCENT_WARMUP)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    with torch.no_grad():
+        params.zero_()
+    per_ms = cuda_ms(replay, DESCENT_ITERS, lambda: None)[0]
+    descent_ms = per_ms * DESCENT_ITERS
+    scales = torch.exp(params.detach()).cpu().tolist()
+    with torch.no_grad():
+        fitted, start_nll = float(nll(params)), float(nll(torch.zeros_like(params)))
+    del replay
+    ok = 1.4 < scales[0] < 2.8 and 0.35 < scales[1] < 0.7 and fitted < start_nll
+    log(f"[analysis] descent (tests/test_differentiable.py:54, true scales 2.0 / 0.5, "
+        f"{DESCENT_STEPS} steps, {DESCENT_ITERS} iterations of lr {DESCENT_LR:g}) on {card}: "
+        f"scales {scales[0]:.4f} / {scales[1]:.4f} (bands 1.4-2.8, 0.35-0.7), NLL {start_nll:.4f} "
+        f"-> {fitted:.4f}; {descent_ms / 1e3:.3f} s of replays ({descent_ms / DESCENT_ITERS:.3f} ms "
+        f"per iteration, CUDA events), {t_capture:.1f} s for {DESCENT_WARMUP} eager iterations "
+        f"and the capture; {time.perf_counter() - t0:.1f} s host clock")
+    check(ok, f"[analysis] the descent left the test's bands: scales {scales}")
+    out["descent"] = dict(scales=scales, replay_s=descent_ms / 1e3)
+    log(f"[analysis] phase {time.perf_counter() - t_phase:.1f} s host clock on {card}")
+    return out
 
 
 def kernel_entry(name, counts, max_err, ms, plain_ms, library_ms, bound_ms, bound_by,
@@ -3516,6 +3991,7 @@ def run():
     timed("factored", phase_factored, gt, torch, device, card)
     timed("tracking", phase_tracking, gt, torch, device, card)
     timed("tracking parity", phase_tracking_parity, gt, torch, device, card)
+    timed("analysis", phase_analysis, gt, torch, device, card)
     log(f"[time] phases (s, host clock): {json.dumps(secs)}; whole script "
         f"{time.perf_counter() - t_run:.1f} s")
 

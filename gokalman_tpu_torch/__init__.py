@@ -35,17 +35,23 @@ the factored and optimization-based filters (`filters.udu`, `sise`,
 the association trackers and unlabelled random-finite-set filters
 (`filters.pdaf`, `imm.run_pdaf`, `jpda`, `tracker`, `phd`, `cphd`, `pmb`;
 a bank of scenes is one scan, `workloads.tracking` makes
-bench_tracking.py's banks), track-to-track fusion (`filters.fusion`),
-the OSPA / GOSPA metrics (`diagnostics`), and the tracing and timing
-helpers (`profiling`).
+bench_tracking.py's banks), the labelled filters (`filters.lmb`, and
+`filters.glmb` with its Gibbs sampler on in-step Philox draws),
+track-to-track fusion (`filters.fusion`), the consistency and
+observability diagnostics, the PCRB, the GLR jump detector and the
+OSPA / GOSPA metrics (`diagnostics`), system identification by EM and
+N4SID (`sysid`), and the tracing and timing helpers (`profiling`).
+Gradients flow through every `run`: `ops.scan.scan` takes its plain
+loop on the card where autograd records.
 
 Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
 """
 
 from . import (c2d, chisquare, convert, diagnostics, dynamics, filters, linalg, montecarlo,
-               noise, od, ops, parallel, profiling, truth, types, workloads)
-from .filters import adaptive, enkf, gsf, imm, particle, rbpf, schmidt, srukf, ukf, vanilla
+               noise, od, ops, parallel, profiling, sysid, truth, types, workloads)
+from .filters import (adaptive, enkf, glmb, gsf, imm, lmb, particle, rbpf, schmidt, srukf, ukf,
+                      vanilla)
 from .types import FilterType
 
 __version__ = "0.1.0"
@@ -60,9 +66,11 @@ __all__ = [
     "enkf",
     "FilterType",
     "filters",
+    "glmb",
     "gsf",
     "imm",
     "linalg",
+    "lmb",
     "montecarlo",
     "noise",
     "od",
@@ -73,6 +81,7 @@ __all__ = [
     "rbpf",
     "schmidt",
     "srukf",
+    "sysid",
     "truth",
     "types",
     "ukf",

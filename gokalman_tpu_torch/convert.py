@@ -31,7 +31,10 @@ the card:
   `State` or `Estimate` of the association trackers and the unlabelled
   random-finite-set filters as the port's record of the same name (a
   `Model`'s `kf` through `model_from_numpy`; JPDA's event table as
-  int64, torch's index type); `fusion_from_numpy` a `FusedEstimate`,
+  int64, torch's index type); `lmb_from_numpy`, `glmb_from_numpy` the
+  same for the labelled filters (LMB's event table and GLMB's outcome
+  codes as int64, `h_pinv` and the one-hot tables as they are);
+  `fusion_from_numpy` a `FusedEstimate`,
   `gospa_from_numpy` a `diagnostics.GospaResult`.
 - `stations_from_numpy`, `measurements_from_numpy`,
   `trajectory_from_numpy`: the dynamics records (`dynamics.stations.
@@ -50,8 +53,8 @@ from ._device import resolve_device
 from .dynamics.propagate import MeasurementSet, Trajectory
 from .dynamics.stations import Station
 from . import diagnostics
-from .filters import (cphd, fusion, iekf, jpda, mekf, mhe, pdaf, phd, pmb, schmidt, sise, tracker,
-                      udu)
+from .filters import (cphd, fusion, glmb, iekf, jpda, lmb, mekf, mhe, pdaf, phd, pmb, schmidt,
+                      sise, tracker, udu)
 from .filters.vanilla import Estimate, Model, State
 from .montecarlo import MonteCarloRuns
 from .noise import Noise
@@ -99,14 +102,14 @@ def record_from_numpy(cls, fields: Sequence, *, dtype=torch.float64, device=None
     `dtype` tensors, integer and bool arrays (the step counter `k`) keep
     their integer or bool type, a nested sequence (a `Noise`) becomes a
     `Noise` of tensors, and None and Python scalars (`meas_size`,
-    `non_tri_r`, `lam_iters`, `dof`) stay as they are.  A field that is
+    `non_tri_r`, `lam_iters`, `dof`, `assoc`) stay as they are.  A field that is
     already a tensor or a port record (a nested record converted first,
     such as `imm.Model`'s modes or `adaptive.State`'s `kf`) is kept.
     """
     device = resolve_device(device)
 
     def conv(a):
-        if a is None or isinstance(a, (bool, int, float, torch.Tensor)) or (
+        if a is None or isinstance(a, (bool, int, float, str, torch.Tensor)) or (
                 type(a).__module__.startswith(__package__ + ".")):
             return a
         if isinstance(a, (tuple, list)):
@@ -203,6 +206,26 @@ def cphd_from_numpy(record, *, dtype=torch.float64, device=None):
 def pmb_from_numpy(record, *, dtype=torch.float64, device=None):
     """A JAX `filters.pmb` Model / State / Estimate as the port's."""
     return _with_kf(pmb, record, dtype, device)
+
+
+def lmb_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.lmb` Model / State / Estimate as the port's; the
+    event table becomes int64."""
+    extra = {}
+    if type(record).__name__ == "Model":
+        extra["events"] = torch.as_tensor(np.array(record.events), dtype=torch.int64,
+                                          device=resolve_device(device))
+    return _with_kf(lmb, record, dtype, device, **extra)
+
+
+def glmb_from_numpy(record, *, dtype=torch.float64, device=None):
+    """A JAX `filters.glmb` Model / State / Estimate as the port's; the
+    outcome codes become int64."""
+    extra = {}
+    if type(record).__name__ == "Model":
+        extra["codes"] = torch.as_tensor(np.array(record.codes), dtype=torch.int64,
+                                         device=resolve_device(device))
+    return _with_kf(glmb, record, dtype, device, **extra)
 
 
 def fusion_from_numpy(record, *, dtype=torch.float64, device=None):

@@ -9,14 +9,14 @@ invariant EKF and its RTS smoother), the factored and
 optimization-based filters (U-D, SISE, Schmidt consider, MHE), and the
 association trackers and unlabelled random-finite-set filters (PDAF,
 JPDA, the GNN tracker, GM-PHD, GM-CPHD, PMB) with track-to-track
-fusion."""
+fusion, and the labelled filters (LMB, δ-GLMB)."""
 
-from . import (adaptive, batch, constrained, cphd, enkf, fusion, gsf, hinf, hybrid, iekf, imm,
-               information, jpda, mekf, mhe, particle, pdaf, phd, pmb, quadrature, rbpf,
+from . import (adaptive, batch, constrained, cphd, enkf, fusion, glmb, gsf, hinf, hybrid, iekf,
+               imm, information, jpda, lmb, mekf, mhe, particle, pdaf, phd, pmb, quadrature, rbpf,
                schmidt, setmembership, sise, smoothing, sqrt, srif, srukf, studentt, tracker, udu,
                ukf, vanilla)
 
-__all__ = ["adaptive", "batch", "constrained", "cphd", "enkf", "fusion", "gsf", "hinf", "hybrid",
-           "iekf", "imm", "information", "jpda", "mekf", "mhe", "particle", "pdaf", "phd", "pmb",
-           "quadrature", "rbpf", "schmidt", "setmembership", "sise", "smoothing", "sqrt", "srif",
-           "srukf", "studentt", "tracker", "udu", "ukf", "vanilla"]
+__all__ = ["adaptive", "batch", "constrained", "cphd", "enkf", "fusion", "glmb", "gsf", "hinf",
+           "hybrid", "iekf", "imm", "information", "jpda", "lmb", "mekf", "mhe", "particle",
+           "pdaf", "phd", "pmb", "quadrature", "rbpf", "schmidt", "setmembership", "sise",
+           "smoothing", "sqrt", "srif", "srukf", "studentt", "tracker", "udu", "ukf", "vanilla"]

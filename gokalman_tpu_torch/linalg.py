@@ -79,6 +79,16 @@ def sym(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * (a + a.transpose(-1, -2))
 
 
+def is_symmetric(a, atol: float = 1e-6, rtol: float = 1e-2) -> bool:
+    """Host-side symmetry check with helper.go:75's tolerances:
+    |A − Aᵀ| ≤ atol + rtol |Aᵀ| everywhere; False for a non-square A."""
+    a = torch.as_tensor(a)
+    if a.shape[-1] != a.shape[-2]:
+        return False
+    at = a.transpose(-1, -2)
+    return bool(((a - at).abs() <= atol + rtol * at.abs()).all())
+
+
 def check_dims(shape1, shape2, name1: str, name2: str, method: str) -> None:
     """Dimension-agreement check (reference: helper.go:99-130)."""
     r1, c1 = shape1

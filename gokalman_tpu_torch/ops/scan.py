@@ -45,6 +45,16 @@ def scan(step: Callable, carry, xs, length: int = None, *, reverse: bool = False
     no tensor from host data; a capture failure raises (there is no
     eager fallback).  Carry leaves must keep their shape and dtype.
     `graph=False`, or CPU tensors, run the plain loop.
+
+    A graph records one step, so autograd cannot see its T replays.
+    Where a gradient is wanted (`needs_autograd`: grad mode is on and a
+    leaf of the carry, of `xs` or of the warm-up step's outputs requires
+    grad, or is a `torch.func` transform's tensor), `scan` runs the plain
+    loop on the card as well, with `graph=True` too, and autograd
+    records every step.  The step's tensors usually reach it through its
+    closure (a `run` closes over its model), so the warm-up step's
+    outputs decide.  Under `torch.no_grad()`, or where no output needs a
+    gradient, the graph is replayed as before.
     """
     flat_xs, xs_spec = pytree.tree_flatten(xs)
     rows = [a for a in flat_xs if isinstance(a, torch.Tensor)]
@@ -60,9 +70,10 @@ def scan(step: Callable, carry, xs, length: int = None, *, reverse: bool = False
         return carry, pytree.tree_map(flip, ys)
     leaves = [a for a in pytree.tree_flatten(carry)[0] + flat_xs
               if isinstance(a, torch.Tensor)]
-    on_card = bool(leaves) and leaves[0].device.type == "cuda"
-    if graph and on_card:
-        return _graph_scan(step, carry, flat_xs, xs_spec, steps, leaves[0].device)
+    if graph and _on_card(leaves) and not needs_autograd(leaves):
+        out = _graph_scan(step, carry, flat_xs, xs_spec, steps, leaves[0].device)
+        if out is not None:
+            return out
     ys = []
     for t in range(steps):
         x_t = pytree.tree_unflatten(
@@ -74,6 +85,22 @@ def scan(step: Callable, carry, xs, length: int = None, *, reverse: bool = False
     stacked = [torch.stack(col) if isinstance(col[0], torch.Tensor) else col[0]
                for col in zip(*flat_ys)]
     return carry, pytree.tree_unflatten(stacked, y_spec)
+
+
+def needs_autograd(tree) -> bool:
+    """Whether a scan whose tensors (or step outputs) are the leaves of
+    `tree` must run as the plain loop for a gradient to be right: grad
+    mode is on and a leaf requires grad, or a leaf is a tensor of a
+    `torch.func` transform (`grad`, `jvp`, `vmap`), which a CUDA graph
+    would capture as a plain buffer."""
+    leaves = [a for a in pytree.tree_leaves(tree) if isinstance(a, torch.Tensor)]
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return any(wrapped(a) for a in leaves) or (
+        torch.is_grad_enabled() and any(a.requires_grad for a in leaves))
+
+
+def _on_card(leaves) -> bool:
+    return bool(leaves) and leaves[0].device.type == "cuda"
 
 
 def _empty_ys(step, carry, flat_xs, xs_spec):
@@ -94,6 +121,8 @@ def _empty_ys(step, carry, flat_xs, xs_spec):
 
 
 def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
+    """The scan as one CUDA graph replayed `steps` times; None, with
+    nothing captured, when the warm-up step's outputs need autograd."""
     flat_c, c_spec = pytree.tree_flatten(carry)
     static_c = [a.clone() if isinstance(a, torch.Tensor) else a for a in flat_c]
     static_x = [a.contiguous() if isinstance(a, torch.Tensor) else a for a in flat_xs]
@@ -111,6 +140,8 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
     with torch.cuda.stream(side):
         new_c, (y_w, y_spec) = body()
     torch.cuda.current_stream(device).wait_stream(side)
+    if needs_autograd((new_c, y_w)):
+        return None
     for old, new in zip(static_c, new_c):
         if isinstance(old, torch.Tensor) and (
                 not isinstance(new, torch.Tensor) or new.shape != old.shape

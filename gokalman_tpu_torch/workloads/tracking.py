@@ -16,6 +16,13 @@ is reproducible but not JAX's (torch cannot replay JAX's streams): the
 rows are held by bench_tracking.py's gates.  Everything is time-major,
 as the port's banks run: truth [T, B, n_targets, 4], candidates
 [T, B, m, 2], masks [T, B, m].
+
+`small_scene` is one small scene in the same layout, made on the host
+with numpy (float64), for the parity checks that run the JAX package,
+the port on the CPU and the port on the card on the same numbers; the
+labelled filters' parity cases (`LABELLED_BIRTH`, `LMB_CASES`,
+`GLMB_CASES`) are shared the same way by the CPU tests and
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -118,3 +125,54 @@ def gen_lifecycle_bank(seed: int, scenes: int = 256, frames: int = 200, *,
     valid."""
     alive = lc_alive(frames)
     return _scenes(LC_X0, alive, M_LC, scenes, frames, seed, dtype, device) + (alive,)
+
+
+def small_scene(seed: int, n_targets: int = 2, steps: int = 20, m: int = 8,
+                nan_pad: bool = False):
+    """Candidate frames [T, m, 2] and masks [T, m] (numpy, float64) of
+    one small scene in bench_tracking.py's layout: the targets (X0_A,
+    X0_B) detected with PD 0.95, 3 clutter points in the box, the rest
+    padding, shuffled per frame; `nan_pad` puts NaN in the unmasked
+    slots."""
+    rng = np.random.default_rng(seed)
+    f, q, _, _ = cv_system()
+    lq = np.linalg.cholesky(q + 1e-12 * np.eye(4))
+    x = np.stack([X0_A, X0_B])[:n_targets].copy()
+    cands, masks = [], []
+    for _ in range(steps):
+        x = x @ f.T + rng.standard_normal((n_targets, 4)) @ lq.T
+        c = BOX * (rng.random((m, 2)) - 0.5)
+        c[:n_targets] = x[:, ::2] + SIGMA_R * rng.standard_normal((n_targets, 2))
+        mk = np.zeros(m, bool)
+        mk[:n_targets] = rng.random(n_targets) < PD
+        mk[n_targets:n_targets + 3] = True
+        perm = rng.permutation(m)
+        c, mk = c[perm], mk[perm]
+        if nan_pad:
+            c[~mk] = np.nan
+        cands.append(c)
+        masks.append(mk)
+    return np.array(cands), np.array(masks)
+
+
+# The labelled filters' parity cases: two labelled birth Bernoullis with
+# distinct existences, then {name: (constructor keywords, candidate
+# slots, scene seed)}, all at PD 0.95 and 6 clutter points per 100 x 100.
+LABELLED_BIRTH = (np.array([0.03, 0.05]),
+                  np.array([[-5.0, 0.1, -5.0, 0.1], [5.0, -0.1, 5.0, -0.1]]),
+                  np.stack([np.diag([4.0, 0.25, 4.0, 0.25])] * 2))
+LMB_CASES = {
+    "exact": (dict(m_max=6, t_max=4, assoc="exact"), 6, 3),
+    "exact adaptive": (dict(m_max=6, t_max=5, assoc="exact", adaptive_birth_r=0.02), 6, 3),
+    "bp": (dict(m_max=8, t_max=8, assoc="bp", bp_iters=10), 8, 3),
+    "bp adaptive": (dict(m_max=8, t_max=12, assoc="bp", bp_iters=10, adaptive_birth_r=0.05), 8,
+                    3),
+}
+GLMB_CASES = {
+    "exact": (dict(m_max=5, t_max=3, h_max=16, assoc="exact"), 5, 2),
+    "exact wide": (dict(m_max=6, t_max=3, h_max=32, assoc="exact"), 6, 3),
+    "gibbs": (dict(m_max=6, t_max=3, h_max=16, assoc="gibbs", n_samples=8, gibbs_sweeps=2), 6,
+              3),
+    "gibbs deep": (dict(m_max=5, t_max=4, h_max=12, assoc="gibbs", n_samples=12,
+                        gibbs_sweeps=3), 5, 0),
+}

@@ -88,25 +88,10 @@ def _close_tree(got, want, tol=TOL):
 def frames(seed, n_targets=2, steps=T, m=M, nan_pad=False):
     """Candidate frames [T, m, 2] and masks [T, m] in bench_tracking.py's
     layout (numpy, f64): the targets' detections (PD 0.95), 3 clutter
-    points in the 100 x 100 box, the rest padding; shuffled per frame."""
-    rng = np.random.default_rng(seed)
-    lq = np.linalg.cholesky(Q + 1e-12 * np.eye(4))
-    x = X0S[:n_targets].copy()
-    cands, masks = [], []
-    for _ in range(steps):
-        x = x @ F.T + rng.standard_normal((n_targets, 4)) @ lq.T
-        c = 100.0 * (rng.random((m, 2)) - 0.5)
-        c[:n_targets] = x[:, ::2] + 0.2 * rng.standard_normal((n_targets, 2))
-        mk = np.zeros(m, bool)
-        mk[:n_targets] = rng.random(n_targets) < 0.95
-        mk[n_targets:n_targets + 3] = True
-        perm = rng.permutation(m)
-        c, mk = c[perm], mk[perm]
-        if nan_pad:
-            c[~mk] = np.nan
-        cands.append(c)
-        masks.append(mk)
-    return np.array(cands), np.array(masks)
+    points in the 100 x 100 box, the rest padding; shuffled per frame
+    (`workloads.tracking.small_scene`, which chip_smoke.py's runners
+    share)."""
+    return tracking.small_scene(seed, n_targets, steps, m, nan_pad)
 
 
 def _nz():
