@@ -68,14 +68,23 @@ JPDA's maintained-RMS and loss gates), with rates, ms per run, kernels
 per step, busy share, peak memory and the δ-GLMB step's device time by
 stage; and the tracking slice's runners and single calls in f64
 (`[tracking parity]`), held card against CPU and graph against eager,
-with their syncs and kernels per step.  Last `[analysis]`: the
+with their syncs and kernels per step.  Then `[analysis]`: the
 diagnostics and system-identification tools in f64, card against CPU
 (the scan-based ones also graph against eager, with 0 syncs per step),
 and tests/test_differentiable.py's two cases on the port: its gradient
 through `vanilla.run` card against CPU (`ops.scan.scan` takes its loop
 under autograd and replays its graph under `no_grad`), and its
 gradient descent, each iteration's forward and backward one CUDA graph,
-inside the test's bands.  Every
+inside the test's bands.  Then the host I/O tier (`[io]`): the native
+CSV formatter built with g++ and byte-identical to Python's %f, `as_csv`
+of an 8,192 x 1,000 card Monte-Carlo run (native and Python rates), the
+sync and async exporters on examples/jerkcar.py's three filters, and a
+checkpoint of [bank]'s IMM bank resumed at step 500.  Last `[mesh
+runs]`: the sharded EnKF (the L96 leg), the sharded particle filter
+(gather and island resampling, 262,144 particles f64) and the sharded
+sensor fusion (examples/sensor_network.py's act 1 and 4,096 sensors) in
+an NCCL group of one and on two gloo ranks, and K1 on a 2 x 2
+multislice mesh of four gloo ranks held to the one-rank result.  Every
 phase raises on failure; there is no CPU or plain-version fallback.  The
 last line of standard output is one JSON object with the device; the
 line before it lists each kernel's launches on the counted paths, its
@@ -2036,19 +2045,15 @@ def l96_step(torch):
     return step
 
 
-def phase_enkf_l96(gt, torch, device, card):
-    """[enkf l96]: bench.py's third leg on the card at its own size,
-    f32: N = 1,024 members, n = 40, 300 cycles; the truth spun up 400
-    steps from F·1 + 0.01 e₀, 20 of 40 sites observed with σ = 1,
-    Gaspari-Cohn localization c = 4 on the cyclic distance, P0 = 4 I,
-    inflation 1.04 (bench.py:173-226).  Gate: analysis RMSE over the last
-    two thirds < 1.0.  Prints the CUDA-event time of a run (draws
-    included, the median of L96_ROUNDS calls after a warm-up),
-    member-steps/s, kernels per cycle and device busy share from
-    torch.profiler, and peak memory."""
+def l96_problem(gt, torch, device):
+    """[enkf l96]'s problem (bench.py:173-226), f32 on the card: the RK4
+    `step`, the truth spun up L96_SPINUP steps from F·1 + 0.01 e₀ and run
+    L96_CYCLES steps, every other site observed with σ = 1 (`ys`, `hx`),
+    the noise model, the Gaspari-Cohn tapers c = 4 on the
+    cyclic distance, the initial mean `x0` (truth[0] + 2 N(0, I)) and the
+    generator `gen` (SEED) after those draws."""
     from gokalman_tpu_torch.filters import enkf
 
-    t_phase = time.perf_counter()
     f32 = torch.float32
     step = l96_step(torch)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2069,11 +2074,31 @@ def phase_enkf_l96(gt, torch, device, card):
     sites = torch.arange(L96_N, dtype=f32, device=device)
     cyc = lambda a, b: torch.minimum((a[:, None] - b[None, :]).abs(),
                                      L96_N - (a[:, None] - b[None, :]).abs())
-    loc_xy = enkf.gaspari_cohn(cyc(sites, sites[h_idx]), 4.0)
-    loc_yy = enkf.gaspari_cohn(cyc(sites[h_idx], sites[h_idx]), 4.0)
     x0 = truth[0] + 2.0 * torch.randn(L96_N, generator=gen, dtype=f32, device=device)
-    s0 = enkf.new(x0, 4.0 * torch.eye(L96_N, dtype=f32, device=device), L96_MEMBERS, gen)
-    hx = lambda e: e.index_select(-1, h_idx)
+    return dict(step=step, truth=truth, ys=ys, noise=noise,
+                hx=lambda e: e.index_select(-1, h_idx),
+                loc_xy=enkf.gaspari_cohn(cyc(sites, sites[h_idx]), 4.0),
+                loc_yy=enkf.gaspari_cohn(cyc(sites[h_idx], sites[h_idx]), 4.0), x0=x0, gen=gen)
+
+
+def phase_enkf_l96(gt, torch, device, card):
+    """[enkf l96]: bench.py's third leg on the card at its own size,
+    f32: N = 1,024 members, n = 40, 300 cycles; the truth spun up 400
+    steps from F·1 + 0.01 e₀, 20 of 40 sites observed with σ = 1,
+    Gaspari-Cohn localization c = 4 on the cyclic distance, P0 = 4 I,
+    inflation 1.04 (bench.py:173-226).  Gate: analysis RMSE over the last
+    two thirds < 1.0.  Prints the CUDA-event time of a run (draws
+    included, the median of L96_ROUNDS calls after a warm-up),
+    member-steps/s, kernels per cycle and device busy share from
+    torch.profiler, and peak memory."""
+    from gokalman_tpu_torch.filters import enkf
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    pb = l96_problem(gt, torch, device)
+    step, truth, ys, noise, hx = pb["step"], pb["truth"], pb["ys"], pb["noise"], pb["hx"]
+    loc_xy, loc_yy, gen = pb["loc_xy"], pb["loc_yy"], pb["gen"]
+    s0 = enkf.new(pb["x0"], 4.0 * torch.eye(L96_N, dtype=f32, device=device), L96_MEMBERS, gen)
 
     def call():
         return enkf.run(noise, s0, ys, step, hx, inflation=1.04, loc_xy=loc_xy,
@@ -2530,32 +2555,15 @@ BANK_GLITCH, BANK_GLITCH_SIGMA = 0.05, 8.0  # examples/robust_estimation.py:64-6
 BANK_ROUNDS = 3  # timed calls after a warm-up
 
 
-def phase_bank(gt, torch, device, card):
-    """[bank]: a 4,096-target IMM bank and a Huber bank on the card, f32,
-    as one `ops.scan.scan` each whose step runs the whole [B, ...] batch
-    (the serving posture of tests/test_imm.py:197 and
-    tests/test_robust.py:68).  The model is bench.py:make_model's; the
-    IMM's agile mode has w = 2.0 I (100x), transitions
-    [[0.97, 0.03], [0.03, 0.97]].  Each target flies ballistic under the
-    quiet Q from x0 ~ N(0, I); from an onset in [300, 600) each velocity
-    component gains the weave BANK_WEAVE sin(BANK_FREQ k + φ) per step
-    (examples/maneuvering_target.py:51-58); R = 0.5 I.  The Huber streams
-    are the same with 5% of the measurement components glitched by 8σ.
-    Gates: the IMM's post-onset position RMS below the quiet CKF's; the
-    Huber bank's position RMS below the plain CKF's before the onset,
-    where the quiet model is the truth's (examples/robust_estimation.py
-    makes its claim on a matched model; the whole-run RMS is printed
-    beside it); all finite.  Prints
-    per bank ms per run (CUDA events, median of BANK_ROUNDS after a
-    warm-up, capture included), target-steps/s, kernels per step and
-    busy share (torch.profiler), the run's peak memory, and the IMM's
-    median onset-detection delay."""
+def bank_scene(gt, torch, device):
+    """[bank]'s scene, f32 on the card (`phase_bank` gives the recipe):
+    the quiet model `quiet` and its state `st`, the IMM `imodel` / `ist`,
+    the onsets, the truth positions `pos` [T, B, 3], the measurements
+    `ys` and the glitched ones."""
     import numpy as np
 
-    from gokalman_tpu_torch.filters import imm, vanilla
-    from gokalman_tpu_torch.ops.bank import tile
+    from gokalman_tpu_torch.filters import imm
 
-    t_phase = time.perf_counter()
     f32 = torch.float32
     b, steps = BANK_TARGETS, BANK_STEPS
     quiet, st = main_model(gt, torch, device)
@@ -2583,6 +2591,38 @@ def phase_bank(gt, torch, device, card):
     sigma = math.sqrt(0.5)
     glitch = torch.rand((steps, b, 3), generator=gen, device=device) < BANK_GLITCH
     ys_glitched = ys + glitch * (BANK_GLITCH_SIGMA * sigma) * torch.sign(randn(steps, b, 3))
+    return dict(quiet=quiet, st=st, imodel=imodel, ist=ist, onset=onset, pos=pos, ys=ys,
+                ys_glitched=ys_glitched)
+
+
+def phase_bank(gt, torch, device, card):
+    """[bank]: a 4,096-target IMM bank and a Huber bank on the card, f32,
+    as one `ops.scan.scan` each whose step runs the whole [B, ...] batch
+    (the serving posture of tests/test_imm.py:197 and
+    tests/test_robust.py:68).  The model is bench.py:make_model's; the
+    IMM's agile mode has w = 2.0 I (100x), transitions
+    [[0.97, 0.03], [0.03, 0.97]].  Each target flies ballistic under the
+    quiet Q from x0 ~ N(0, I); from an onset in [300, 600) each velocity
+    component gains the weave BANK_WEAVE sin(BANK_FREQ k + φ) per step
+    (examples/maneuvering_target.py:51-58); R = 0.5 I.  The Huber streams
+    are the same with 5% of the measurement components glitched by 8σ.
+    Gates: the IMM's post-onset position RMS below the quiet CKF's; the
+    Huber bank's position RMS below the plain CKF's before the onset,
+    where the quiet model is the truth's (examples/robust_estimation.py
+    makes its claim on a matched model; the whole-run RMS is printed
+    beside it); all finite.  Prints
+    per bank ms per run (CUDA events, median of BANK_ROUNDS after a
+    warm-up, capture included), target-steps/s, kernels per step and
+    busy share (torch.profiler), the run's peak memory, and the IMM's
+    median onset-detection delay."""
+    from gokalman_tpu_torch.filters import imm, vanilla
+    from gokalman_tpu_torch.ops.bank import tile
+
+    t_phase = time.perf_counter()
+    b, steps = BANK_TARGETS, BANK_STEPS
+    scene = bank_scene(gt, torch, device)
+    quiet, st, imodel, ist = scene["quiet"], scene["st"], scene["imodel"], scene["ist"]
+    onset, pos, ys, ys_glitched = scene["onset"], scene["pos"], scene["ys"], scene["ys_glitched"]
     rms = lambda est, mask: float(torch.sqrt(((est[..., :3] - pos) ** 2).sum(-1)[mask].mean()))
     after = torch.arange(steps, device=device)[:, None] >= onset[None, :]
     banks = {
@@ -3937,6 +3977,624 @@ def phase_analysis(gt, torch, device, card):
     return out
 
 
+IO_MATRIX = (4_096, 64)  # the formatter's byte-identity check
+IO_RUNS, IO_STEPS = 8_192, 1_000  # as_csv's card run: 6 components x 1,000 x 8,194 values
+IO_PY_SHARE = 64  # the Python path formats 1/64 of the rows, scaled up
+CKPT_SPLIT = 500  # the [bank] IMM bank stops here, is saved, restored and finished
+JERK_HEADERS = ["position", "velocity", "acceleration", "bias"]
+
+
+def edge_matrix(np, shape, seed):
+    """Values over 18 decades with NaN, ±inf, −0.0, 1e300, values in the
+    formatter's rounding guard band and the smallest subnormal."""
+    rng = np.random.default_rng(seed)
+    m = rng.standard_normal(shape) * 10.0 ** rng.integers(-9, 9, shape)
+    edge = [0.0, -0.0, np.nan, np.inf, -np.inf, 1e300, -1e300, 0.5, -2.5, 1e-7, 0.0000005,
+            2.0000005, -999999.9999995, 123456789.5, 1e25, 5e-324]
+    m.reshape(-1)[:len(edge)] = edge
+    return m
+
+
+def python_csv(matrix):
+    return "".join(",".join(f"{v:f}" for v in row) + "\n" for row in matrix)
+
+
+def jerkcar_exports(gt, torch, device, tmp, card):
+    """examples/jerkcar.py on the card: its stand-in inputs through
+    vanilla.run, sqrt.run (upper predicted factor) and information.run
+    from zero information, each drained by CSVExporter and by
+    AsyncCSVExporter (the initial estimate, then write_all).  The two
+    files must agree but for their timestamp lines, and read_csv must
+    give back the values and ±2σ bounds to %f's rounding."""
+    import types
+
+    import numpy as np
+
+    from gokalman_tpu_torch import exporter
+    from gokalman_tpu_torch.filters import information, sqrt, vanilla
+
+    jc = gt.workloads.jerkcar
+    f64 = torch.float64
+    as_t = lambda arrays: [torch.as_tensor(a, device=device) for a in arrays]
+    uvec, yacc, ypos = jc.stand_in_inputs()
+    ys, us, hs, rs, masks = as_t(jc.schedule(yacc, ypos, uvec))
+    iys, ius, ihs, irs, imasks = as_t(jc.schedule(yacc, ypos, uvec, info_rinv_quirk=True))
+    vmodel, vst = vanilla.new(jc.X0, jc.P0, jc.F, jc.G, jc.H1,
+                              gt.noise.noiseless(jc.Q, jc.R, dtype=f64), dtype=f64)
+    smodel, sst = sqrt.new(jc.X0, jc.P0, jc.F, jc.G, jc.H1,
+                           gt.noise.Noise(jc.Q, jc.R, np.linalg.cholesky(jc.Q),
+                                          np.linalg.cholesky(jc.R)), dtype=f64)
+    imodel, ist = information.new(np.zeros(4), np.zeros((4, 4)), jc.F, jc.G, jc.H2,
+                                  gt.noise.noiseless(jc.Q, jc.RA, dtype=f64), dtype=f64)
+    runs = {
+        "vanilla": (lambda: vanilla.run(vmodel, vst, ys, us, hs=hs, rs=rs, meas_masks=masks)[1],
+                    jc.X0, jc.P0),
+        "sqrt": (lambda: sqrt.run(smodel, sst, ys, us, hs=hs, rs=rs, meas_masks=masks,
+                                  go_upper_pred_factor=True)[1], jc.X0, jc.P0),
+        "information": (lambda: information.run(imodel, ist, iys, ius, hs=ihs, rs=irs,
+                                                meas_masks=imasks)[1],
+                        np.zeros(4), np.zeros((4, 4)))}
+    for name, (call, x0, p0) in runs.items():
+        ests = call()
+        torch.cuda.synchronize()
+        est0 = types.SimpleNamespace(state=torch.as_tensor(x0, device=device),
+                                     covariance=torch.as_tensor(p0, device=device))
+        secs, bodies = {}, {}
+        for cls in ("CSVExporter", "AsyncCSVExporter"):
+            fname = f"{name}_{cls}.csv"
+            t0 = time.perf_counter()
+            with getattr(exporter, cls)(JERK_HEADERS, tmp, fname, 2.0) as e:
+                e.write(est0)
+                e.write_all(ests)
+            secs[cls] = time.perf_counter() - t0
+            with open(os.path.join(tmp, fname)) as fh:
+                lines = fh.readlines()
+            stamps = [line for line in lines if line.startswith("#")]
+            check(len(stamps) == 2, f"[io] {fname}: {len(stamps)} timestamp lines")
+            bodies[cls] = [line for line in lines if not line.startswith("#")]
+        check(bodies["CSVExporter"] == bodies["AsyncCSVExporter"],
+              f"[io] jerkcar {name}: the async exporter's file differs from the sync one's")
+        headers, data = exporter.read_csv(os.path.join(tmp, f"{name}_CSVExporter.csv"))
+        states = torch.cat([est0.state[None], ests.state]).cpu().numpy()
+        covs = torch.cat([est0.covariance[None], ests.covariance]).cpu().numpy()
+        bound = 2.0 * np.sqrt(np.maximum(np.diagonal(covs, axis1=1, axis2=2), 0.0))
+        want = np.stack([states, bound, -bound], axis=2).reshape(states.shape[0], -1)
+        check(data.shape == want.shape and len(headers) == want.shape[1],
+              f"[io] jerkcar {name}: read_csv gave {data.shape}, want {want.shape}")
+        fin = np.isfinite(want)
+        err = np.abs(data[fin] - want[fin])
+        check(bool(np.all(err <= 5e-7 + 1e-12 * np.abs(want[fin])))
+              and np.array_equal(np.isnan(data), np.isnan(want)),
+              f"[io] jerkcar {name}: read_csv values off by {float(err.max())}")
+        log(f"[io] jerkcar {name}: {ests.state.shape[0]} steps f64 on {card}: CSVExporter "
+            f"{secs['CSVExporter'] * 1e3:.2f} ms, AsyncCSVExporter "
+            f"{secs['AsyncCSVExporter'] * 1e3:.2f} ms to close (host clock, card-to-host "
+            f"transfer included); files identical but for the 2 timestamp lines: True; "
+            f"read_csv max|diff| {float(err.max()):.3g} (%f rounds to 5e-7)")
+
+
+def imm_checkpoint(gt, torch, device, tmp, card):
+    """[bank]'s IMM bank (4,096 targets, f32) stopped at CKPT_SPLIT steps,
+    saved, restored onto the card templates and finished, against the
+    uninterrupted BANK_STEPS-step run: bitwise, or the largest
+    difference printed with its cause (the same split without the
+    checkpoint tells the two apart)."""
+    from gokalman_tpu_torch import checkpoint
+    from gokalman_tpu_torch.filters import imm
+    from gokalman_tpu_torch.ops.bank import tile
+
+    scene = bank_scene(gt, torch, device)
+    model, ys = scene["imodel"], scene["ys"]
+    s0 = tile(scene["ist"], BANK_TARGETS)
+    full, full_est = imm.run(model, s0, ys)
+    mid, est_a = imm.run(model, s0, ys[:CKPT_SPLIT])
+    path = os.path.join(tmp, "imm_bank")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(path, mid)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = checkpoint.restore(path, mid)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    check(all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+              for a, b in zip(back, mid)), "[io] restored IMM state differs from the saved one")
+    resumed, est_b = imm.run(model, back, ys[CKPT_SPLIT:])
+    direct, est_c = imm.run(model, mid, ys[CKPT_SPLIT:])
+    # Final state and every estimate of the run, as one list of tensors.
+    trace = lambda fin, *ests: list(fin) + [torch.cat(parts) for parts in zip(*ests)]
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    check(same(trace(resumed, est_a, est_b), trace(direct, est_a, est_c)),
+          "[io] the resumed IMM bank differs from the same split without the checkpoint")
+    got, want = trace(resumed, est_a, est_b), trace(full, full_est)
+    bitwise = same(got, want)
+    size = os.path.getsize(path + ".npz")
+    if bitwise:
+        cause = "equal to the uninterrupted run bitwise"
+    else:
+        worst = max(float((x.double() - y.double()).abs().max())
+                    for x, y in zip(got, want) if x.is_floating_point())
+        cause = (f"max|diff| {worst:.3g} from the uninterrupted run, the same as the split run "
+                 f"without the checkpoint: two graph captures of {CKPT_SPLIT} steps against "
+                 f"one of {BANK_STEPS}, not the checkpoint")
+    log(f"[io] checkpoint: IMM bank B = {BANK_TARGETS} f32 on {card} stopped at step "
+        f"{CKPT_SPLIT} of {BANK_STEPS}, save {t_save * 1e3:.1f} ms ({size / 2**20:.2f} MiB "
+        f"npz), restore onto card templates {t_restore * 1e3:.1f} ms (host clock); resumed "
+        f"run equals the split run without the checkpoint bitwise: True; {cause}")
+    return bitwise
+
+
+def phase_io(gt, torch, device, card):
+    """[io]: the host I/O tier.  Builds the native formatter (g++) and
+    fails without it; holds `format_csv` byte-identical to Python's %f
+    on an IO_MATRIX matrix with the edge values; `as_csv` of a card
+    `monte_carlo` run of the main-path model at IO_RUNS x IO_STEPS
+    (native seconds, Python seconds on 1/IO_PY_SHARE of the rows scaled
+    up, values per second, the rows both formatted byte-identical); the
+    exporters on examples/jerkcar.py's filters (`jerkcar_exports`); and
+    the IMM bank's checkpoint resume (`imm_checkpoint`)."""
+    import numpy as np
+
+    from gokalman_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    check(native.available(), f"[io] the native formatter did not build: {native.build_error}")
+    log(f"[io] native formatter: available() True; g++ -O3 build {native.build_seconds:.2f} s "
+        f"(0 if built before), load {time.perf_counter() - t0:.2f} s host clock")
+    m = edge_matrix(np, IO_MATRIX, SEED)
+    t0 = time.perf_counter()
+    text = native.format_csv(m)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = python_csv(m)
+    t_py = time.perf_counter() - t0
+    check(text == py, "[io] format_csv differs from Python's %f")
+    log(f"[io] format_csv {IO_MATRIX[0]}x{IO_MATRIX[1]} with NaN, ±inf, -0.0, 1e300 and "
+        f"guard-band values: byte-identical to Python True; native {t_native * 1e3:.1f} ms "
+        f"({m.size / t_native:.4g} values/s), Python {t_py * 1e3:.1f} ms "
+        f"({m.size / t_py:.4g} values/s) on the host of {card}")
+
+    model, st = main_model(gt, torch, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    runs = gt.montecarlo.monte_carlo(model, st, IO_RUNS, IO_STEPS, gen, init_spread=True)
+    torch.cuda.synchronize()
+    headers = ["x", "y", "z", "vx", "vy", "vz"]
+    t0 = time.perf_counter()
+    blobs = runs.as_csv(headers)
+    t_native = time.perf_counter() - t0
+    # Both formatters on the first 1/IO_PY_SHARE of the steps (a run of
+    # its own: its per-step statistics are reduced anew on the card).
+    rows = IO_STEPS // IO_PY_SHARE
+    part = runs._replace(estimates=type(runs.estimates)(*(a[:, :rows] for a in runs.estimates)),
+                         steps=rows)
+    part_native = part.as_csv(headers)
+    saved = native.format_csv
+    native.format_csv = lambda matrix: None  # the Python path
+    try:
+        t0 = time.perf_counter()
+        part_py = part.as_csv(headers)
+        t_py = time.perf_counter() - t0
+    finally:
+        native.format_csv = saved
+    check(len(blobs) == 6 and all(b.count("\n") == IO_STEPS for b in blobs),
+          "[io] as_csv: wrong blob count or row count")
+    check(part_native == part_py, "[io] as_csv: the native rows differ from Python's")
+    values = IO_STEPS * (IO_RUNS + 2) * 6
+    t_py_all = t_py * IO_STEPS / rows
+    log(f"[io] as_csv of monte_carlo {IO_RUNS} runs x {IO_STEPS} steps f32 on {card} "
+        f"({values:,} values, {sum(map(len, blobs)) / 2**20:.1f} MiB of text): native "
+        f"{t_native:.3f} s ({values / t_native:.4g} values/s, the card-to-host copy "
+        f"included); Python {t_py:.3f} s on {rows} of {IO_STEPS} rows, {t_py_all:.1f} s "
+        f"scaled ({values / t_py_all:.4g} values/s; native {t_py_all / t_native:.1f}x); the "
+        f"{rows} rows both formatted byte-identical: True")
+    del blobs, part_native, part_py, runs, part
+    with tempfile.TemporaryDirectory() as tmp:
+        jerkcar_exports(gt, torch, device, tmp, card)
+        imm_checkpoint(gt, torch, device, tmp, card)
+    log(f"[io] phase {time.perf_counter() - t_phase:.1f} s host clock on {card}")
+
+
+MESH_PARTICLES, MESH_PARTICLE_STEPS = 262_144, 100  # tests/test_shard_particle_local.py's system
+MESH_SENSORS, MESH_SENSOR_STEPS = 4_096, 1_000  # the large sensor network
+MESH_TOL = 1e-9  # f64: gather vs unsharded, fusion vs the central KF, world 2 vs world 1
+# The f32 L96 means, sharded against world 1 and the unsharded run: the
+# moment sums are added in another order (values of order 10, f32 ulps
+# of ~1e-6; the filter damps the difference rather than growing it).
+L96_MESH_ATOL = 1e-4
+MESH_ROUNDS = 2  # timed calls after the first
+MESH_SYNC_STEPS = (5, 15)  # eager calls whose difference gives syncs per step
+MULTI_SLICES, MULTI_CHIPS = 2, 2  # the multislice mesh on four gloo ranks
+
+
+def to_cpu(tree):
+    """`tree` with every tensor moved to the host (to leave a rank)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*map(to_cpu, tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map(to_cpu, tree))
+    return tree
+
+
+def sensor_network(np, n_sensors=None, steps=None, seed=None):
+    """examples/sensor_network.py's act-1 network (F, Q, hs [S, 2, 4],
+    rs [S, 2, 2], ys [S, T, 2]): with no arguments its own 8 sensors x 60
+    steps in its draw order (example lines 60-76, seed 1); else
+    `n_sensors` x `steps` of the same kind drawn in bulk from `seed`."""
+    dt = 0.5
+    f = np.kron(np.eye(2), np.array([[1.0, dt], [0.0, 1.0]]))
+    q = 0.02 * np.kron(np.eye(2), np.array([[dt**3 / 3, dt**2 / 2], [dt**2 / 2, dt]]))
+    lq = np.linalg.cholesky(q)
+    base = np.kron(np.eye(2), [[1.0, 0.0]])
+    x = np.array([5.0, -0.2, -3.0, 0.3])
+    if n_sensors is None:
+        rng = np.random.default_rng(1)
+        n_sensors, steps = 8, 60
+        hs, rs = [], []
+        for _ in range(n_sensors):
+            hs.append(base + 0.2 * rng.standard_normal((2, 4)))
+            a = rng.standard_normal((2, 2))
+            rs.append(0.3 * (a @ a.T + 2 * np.eye(2)))
+        hs, rs = np.stack(hs), np.stack(rs)
+        ys = np.zeros((n_sensors, steps, 2))
+        for k in range(steps):
+            x = f @ x + lq @ rng.standard_normal(4)
+            for s in range(n_sensors):
+                ys[s, k] = hs[s] @ x + np.linalg.cholesky(rs[s]) @ rng.standard_normal(2)
+        return f, q, hs, rs, ys
+    rng = np.random.default_rng(seed)
+    hs = base + 0.2 * rng.standard_normal((n_sensors, 2, 4))
+    a = rng.standard_normal((n_sensors, 2, 2))
+    rs = 0.3 * (a @ a.transpose(0, 2, 1) + 2 * np.eye(2))
+    ws = rng.standard_normal((steps, 4)) @ lq.T
+    xs = np.empty((steps, 4))
+    for k in range(steps):
+        x = f @ x + ws[k]
+        xs[k] = x
+    vs = rng.standard_normal((n_sensors, steps, 2))
+    ys = (np.einsum("spn,tn->stp", hs, xs)
+          + np.einsum("spq,stq->stp", np.linalg.cholesky(rs), vs))
+    return f, q, hs, rs, ys
+
+
+def mesh_inputs(gt, torch, device, world):
+    """The [mesh runs] problems and draws, the same on every rank (made on
+    the card from seeds): [enkf l96]'s problem with the initial normals
+    and `Draws` of its 1,024 members (SEED + 3); the particle system of
+    tests/test_shard_particle_local.py (2 states, σ² = 0.05, its
+    measurement law 0.4 + 0.2 N(0, 1) from numpy seed 2) at
+    MESH_PARTICLES x MESH_PARTICLE_STEPS f64 with its normals, the shared
+    uniforms and one uniform per rank of a `world`-rank ring (SEED + 5);
+    the act-1 network and the large one (SEED), on the card."""
+    import numpy as np
+
+    from gokalman_tpu_torch.filters import enkf
+
+    f32, f64 = torch.float32, torch.float64
+    pb = l96_problem(gt, torch, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    pb["z0"] = torch.randn((L96_MEMBERS, L96_N), generator=gen, dtype=f32, device=device)
+    pb["draws"] = enkf.draws(gen, L96_CYCLES, L96_MEMBERS, L96_N, pb["ys"].shape[1], f32,
+                             device)
+    pb["p0"] = 4.0 * torch.eye(L96_N, dtype=f32, device=device)
+    n, steps = MESH_PARTICLES, MESH_PARTICLE_STEPS
+    rng = np.random.default_rng(2)
+    pp = dict(f=np.array([[1.0, 0.1], [0.0, 1.0]]), h=np.array([[1.0, 0.0]]),
+              q=np.diag([1e-3, 2e-3]), r=np.array([[0.05]]), x0=np.array([0.3, -0.2]),
+              p0=0.4 * np.eye(2), ys=0.4 + 0.2 * rng.standard_normal((steps, 1)))
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    pp["z0"] = torch.randn((n, 2), generator=gen, dtype=f64, device=device)
+    pp["z"] = torch.randn((steps, n, 2), generator=gen, dtype=f64, device=device)
+    pp["u"] = torch.rand((steps,), generator=gen, dtype=f64, device=device)
+    pp["u_local"] = torch.rand((steps, world), generator=gen, dtype=f64, device=device)
+    on_card = lambda arrays: [torch.as_tensor(a, dtype=f64, device=device) for a in arrays]
+    return dict(l96=pb, particle=pp, act1=on_card(sensor_network(np)),
+                network=on_card(sensor_network(np, MESH_SENSORS, MESH_SENSOR_STEPS, SEED)))
+
+
+def particle_fns(gt, torch, device, pp):
+    """(propagate, loglik) of the [mesh runs] particle system."""
+    from gokalman_tpu_torch.filters import particle
+
+    f64 = torch.float64
+    nz = gt.noise.awgn(pp["q"], pp["r"], dtype=f64, device=device)
+    f, h = (torch.as_tensor(pp[k], dtype=f64, device=device) for k in ("f", "h"))
+    return (particle.additive_dynamics(lambda x: x @ f.T, nz),
+            particle.gaussian_log_likelihood(lambda x: x @ h.T, nz))
+
+
+def mesh_runs_rank(inputs=None):
+    """One rank's [mesh runs]: in a spawned process of a gloo group, or in
+    the parent in an NCCL group of one (`inputs` built already).  Runs
+    `sharded_enkf_run` on [enkf l96]'s problem, `sharded_particle_run` in
+    gather and island mode and `sharded_sensor_fusion_run` on the act-1
+    network and the large one, each on this rank's rows.  Returns per
+    run its first result (on the host), CUDA-event ms of MESH_ROUNDS
+    more calls, the first call's peak memory above what was allocated,
+    and the syncs per step of eager calls of MESH_SYNC_STEPS steps."""
+    import torch
+    import torch.distributed as dist
+
+    import gokalman_tpu_torch as gt
+    from gokalman_tpu_torch.filters import enkf, particle
+    from gokalman_tpu_torch.parallel import mesh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    inputs = mesh_inputs(gt, torch, device, world) if inputs is None else inputs
+    out = {"backend": dist.get_backend(), "ring staged": particle.ring_staged(None, device)}
+
+    def measure(name, call, short):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        first = call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - live
+        ms = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(MESH_ROUNDS))
+        a, b = (len(synchronizing_calls(lambda: short(t), warm=False)) for t in MESH_SYNC_STEPS)
+        out[name] = dict(result=to_cpu(first), ms=ms, peak=peak,
+                         syncs=(b - a) / (MESH_SYNC_STEPS[1] - MESH_SYNC_STEPS[0]))
+
+    pb = inputs["l96"]
+    rows = slice(rank * L96_MEMBERS // world, (rank + 1) * L96_MEMBERS // world)
+    zq, zr = (d[:, rows].contiguous() for d in pb["draws"])
+    run_enkf = lambda t: mesh.sharded_enkf_run(
+        pb["noise"], pb["x0"], pb["p0"], L96_MEMBERS, pb["ys"][:t], pb["step"], pb["hx"],
+        enkf.Draws(zq[:t], zr[:t]), inflation=1.04, loc_xy=pb["loc_xy"], loc_yy=pb["loc_yy"],
+        z0=pb["z0"][rows])
+    measure("enkf", lambda: run_enkf(L96_CYCLES)[1].state, run_enkf)
+    del zq, zr
+
+    pp = inputs["particle"]
+    prop, loglik = particle_fns(gt, torch, device, pp)
+    rows = slice(rank * MESH_PARTICLES // world, (rank + 1) * MESH_PARTICLES // world)
+    z, z0 = pp["z"][:, rows].contiguous(), pp["z0"][rows]
+    ys = torch.as_tensor(pp["ys"], device=device)
+    for mode, u in (("gather", pp["u"]), ("local", pp["u_local"])):
+        run_pf = lambda t: mesh.sharded_particle_run(
+            pp["x0"], pp["p0"], MESH_PARTICLES, ys[:t], prop, loglik,
+            particle.Draws(z[:t], u[:t]), resampling=mode, z0=z0)
+        measure(f"particle {mode}", lambda: run_pf(MESH_PARTICLE_STEPS)[1], run_pf)
+    del z
+
+    x0 = torch.zeros(4, dtype=torch.float64, device=device)
+    p0 = torch.eye(4, dtype=torch.float64, device=device)
+    f, q, hs, rs, ys = inputs["act1"]
+    out["fusion act1"] = to_cpu(mesh.sharded_sensor_fusion_run(x0, p0, f, q, hs, rs, ys))
+    f, q, hs, rs, ys = inputs["network"]
+    run_fusion = lambda t: mesh.sharded_sensor_fusion_run(x0, p0, f, q, hs, rs, ys[:, :t])
+    measure("fusion", lambda: run_fusion(MESH_SENSOR_STEPS), run_fusion)
+    return out
+
+
+def multislice_rank(samples_local):
+    """One rank of the 2 x 2 multislice check, in its own process: K1 on
+    its `samples_local` members of the main path, pooled over chip, then
+    slice (`multislice_mesh`), and over the flat four-rank mesh; its K1
+    launches in the counted run, the CUDA-event ms of `sharded_forward`
+    on the 2-D mesh, and its place in the mesh."""
+    import torch
+    import torch.distributed as dist
+
+    import gokalman_tpu_torch as gt
+    from gokalman_tpu_torch.ops import fused_mc
+    from gokalman_tpu_torch.parallel import mesh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    model, st = main_model(gt, torch, device)
+    grid = mesh.multislice_mesh(MULTI_SLICES, MULTI_CHIPS)
+    fused_mc.reset_launches()
+    res = mesh.sharded_mc_chi_square_fused(model, st, samples_local, STEPS, SEED, grid)
+    torch.cuda.synchronize()
+    launches = fused_mc.launches["fused_mc"]
+    mod = fused_mc.MonteCarloChiSquare(model, st, STEPS)
+    call = lambda: mesh.sharded_forward(mod, samples_local, SEED, grid)
+    ms = cuda_ms(call, 3, call)[0]
+    flat = mesh.sharded_forward(mod, samples_local, SEED, mesh.ensemble_mesh())
+    return {"result": to_cpu(res), "flat": to_cpu(flat), "launches": launches, "ms": ms,
+            "groups": [dist.get_process_group_ranks(g) for g in grid.axis_groups]}
+
+
+def kf_evidence(np, pp):
+    """tests/test_shard_particle_local.py's closed-form log p(y_1:T) and
+    final posterior of the particle system."""
+    x, p = pp["x0"], pp["p0"]
+    ll = 0.0
+    for y in pp["ys"]:
+        x = pp["f"] @ x
+        p = pp["f"] @ p @ pp["f"].T + pp["q"]
+        s = pp["h"] @ p @ pp["h"].T + pp["r"]
+        e = y - pp["h"] @ x
+        ll += float(-0.5 * (np.log(2 * np.pi * s[0, 0]) + e[0] ** 2 / s[0, 0]))
+        k = p @ pp["h"].T / s[0, 0]
+        x = x + k @ e
+        p = (np.eye(2) - k @ pp["h"]) @ p
+    return ll, x, p
+
+
+def island_gates(np, tag, est, pp, kf):
+    """tests/test_shard_particle_local.py's gates on one island run:
+    ESS in [1, N], finite, at least 5 resampling steps, the evidence
+    within 0.25 of the Kalman filter's (its seed-mean bound for one seed,
+    3·0.05 + 0.1) and 0.8 (its worst-seed bound), the final mean within
+    5 sd / sqrt(N / 4) of the KF posterior, variances within 50%."""
+    ll_kf, x_kf, p_kf = kf
+    ess, ll = est.ess.numpy(), float(est.log_likelihood.sum())
+    mean, var = est.state[-1].numpy(), np.diag(est.covariance[-1].numpy())
+    sd = np.sqrt(np.diag(p_kf))
+    n = MESH_PARTICLES
+    check(bool(np.all(ess >= 1.0 - 1e-6) and np.all(ess <= n + 1e-6))
+          and bool(np.isfinite(est.state.numpy()).all()), f"{tag}: ESS or estimates out of range")
+    check(int(est.resampled.sum()) >= 5, f"{tag}: resampled {int(est.resampled.sum())} times")
+    check(abs(ll - ll_kf) < 0.25, f"{tag}: evidence {ll} vs the KF's {ll_kf}")
+    check(bool(np.all(np.abs(mean - x_kf) < 5.0 * sd / np.sqrt(n / 4))),
+          f"{tag}: posterior mean {mean} vs the KF's {x_kf}")
+    check(bool(np.all(np.abs(var / np.diag(p_kf) - 1.0) < 0.5)),
+          f"{tag}: posterior variances {var} vs the KF's {np.diag(p_kf)}")
+    return (f"evidence {ll:.4f} (KF {ll_kf:.4f}), final mean error "
+            f"{np.abs(mean - x_kf).max():.3g} (gate {5.0 * sd.min() / np.sqrt(n / 4):.3g}), "
+            f"variance ratio {(var / np.diag(p_kf)).round(4).tolist()}, "
+            f"{int(est.resampled.sum())} resampling steps, min ESS {ess.min():.1f}")
+
+
+def fmt_run(r, steps):
+    """A [mesh runs] rank's time, peak memory and syncs of one run.  The
+    syncs are those of the calling thread: gloo copies a CUDA tensor to
+    the host and back on its own threads, which the count does not see."""
+    ms = r["ms"]
+    mid = ms[len(ms) // 2]
+    return (f"{mid:.3f} ms per run (CUDA events, median of {len(ms)} after the first; min "
+            f"{ms[0]:.3f}, max {ms[-1]:.3f}; {mid / steps * 1e3:.1f} µs per step), peak memory "
+            f"{r['peak'] / 2**20:.1f} MiB, {r['syncs']:g} syncs per eager step (calling "
+            f"thread)")
+
+
+def phase_mesh_runs(gt, torch, device, card, sharded_world1):
+    """[mesh runs]: the rest of `parallel.mesh` in an NCCL group of one
+    rank (in this process), on two gloo ranks on the one card, and on a
+    2 x 2 multislice mesh of four gloo ranks.
+
+    - `sharded_enkf_run` on [enkf l96]'s problem (N = 1,024, 300 cycles,
+      f32, localization, inflation 1.04): world 1 and world 2 against the
+      unsharded `enkf.run` on the same draws, to L96_MESH_ATOL, each
+      inside bench.py's RMSE gate (< 1.0);
+    - `sharded_particle_run` at MESH_PARTICLES x MESH_PARTICLE_STEPS f64:
+      gather mode against the unsharded `particle.run` to MESH_TOL at
+      world 1 and 2; island mode inside tests/test_shard_particle_local.py's
+      gates (`island_gates`); the ring's transport printed;
+    - `sharded_sensor_fusion_run`: examples/sensor_network.py's act 1
+      against the central KF (`vanilla.run` on the stacked measurements)
+      to 1e-9, the example's claim; MESH_SENSORS x MESH_SENSOR_STEPS f64,
+      world 2 against world 1 to MESH_TOL;
+    - `sharded_mc_chi_square_fused` at SAMPLES x STEPS over the 2 x 2 mesh
+      (SAMPLES / 4 members a rank, K1 on each), held to the one-rank
+      `[sharded]` result within 1 f32 ulp.
+
+    Times per run, peak memory and syncs per step per rank.  Returns K1's
+    launches in the counted multislice runs."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from gokalman_tpu_torch.filters import enkf, particle
+    from gokalman_tpu_torch.parallel import _launch
+
+    t_phase = time.perf_counter()
+    inputs = mesh_inputs(gt, torch, device, 1)
+    pb, pp = inputs["l96"], inputs["particle"]
+    s0 = enkf.new(pb["x0"], pb["p0"], L96_MEMBERS, z=pb["z0"])
+    ref_enkf = enkf.run(pb["noise"], s0, pb["ys"], pb["step"], pb["hx"], pb["draws"],
+                        inflation=1.04, loc_xy=pb["loc_xy"], loc_yy=pb["loc_yy"])[1].state
+    prop, loglik = particle_fns(gt, torch, device, pp)
+    ref_pf = to_cpu(particle.run(particle.new(pp["x0"], pp["p0"], MESH_PARTICLES, z=pp["z0"]),
+                                 torch.as_tensor(pp["ys"], device=device), prop, loglik,
+                                 particle.Draws(pp["z"], pp["u"]))[1])
+    f, q, hs, rs, ys = inputs["act1"]
+    n_s, steps = ys.shape[:2]
+    r_big = torch.block_diag(*rs)
+    cmodel, cst = gt.vanilla.new(np.zeros(4), np.eye(4), f, None, hs.reshape(-1, 4),
+                                 gt.noise.noiseless(q, r_big), dtype=torch.float64)
+    central = gt.vanilla.run(cmodel, cst, ys.transpose(0, 1).reshape(steps, -1))[1].state.cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            w1 = mesh_runs_rank(inputs)
+        finally:
+            dist.destroy_process_group()
+    del inputs
+    t0 = time.perf_counter()
+    w2 = _launch.spawn(mesh_runs_rank, [()] * WORLD2, timeout=900)
+    wall2 = time.perf_counter() - t0
+    ranks = [("world 1", w1)] + [(f"world 2 rank {r}", o) for r, o in enumerate(w2)]
+
+    truth = pb["truth"].cpu()
+    rmse = lambda m: float(torch.sqrt(torch.mean((m - truth)[L96_CYCLES // 3:] ** 2)))
+    ref_enkf = ref_enkf.cpu()
+    for tag, o in ranks:
+        means = o["enkf"]["result"]
+        base = ref_enkf if tag == "world 1" else w1["enkf"]["result"]
+        diff = float((means - base).abs().max())
+        check(bool(torch.isfinite(means).all()) and rmse(means) < 1.0,
+              f"[mesh runs] enkf {tag}: RMSE {rmse(means)} (gate < 1.0)")
+        check(diff <= L96_MESH_ATOL, f"[mesh runs] enkf {tag}: {diff} from "
+              f"{'the unsharded run' if tag == 'world 1' else 'world 1'}")
+        log(f"[mesh runs] sharded_enkf_run {tag} ({o['backend']}), N = {L96_MEMBERS}, "
+            f"{L96_CYCLES} cycles f32 on {card}: RMSE {rmse(means):.4f} (unsharded "
+            f"{rmse(ref_enkf):.4f}, gate < 1.0); max|diff| {diff:.3g} from "
+            f"{'the unsharded enkf.run' if tag == 'world 1' else 'world 1'} (atol "
+            f"{L96_MESH_ATOL:g}); {fmt_run(o['enkf'], L96_CYCLES)}")
+
+    kf = kf_evidence(np, pp)
+    for tag, o in ranks:
+        est = o["particle gather"]["result"]
+        base = ref_pf if tag == "world 1" else w1["particle gather"]["result"]
+        diffs = {}
+        for field in est._fields:
+            a, b = getattr(est, field), getattr(base, field)
+            if field == "resampled":
+                check(torch.equal(a, b), f"[mesh runs] particle gather {tag}: resampling steps")
+                continue
+            diffs[field] = float((a - b).abs().max())
+            check(bool(torch.allclose(a, b, rtol=MESH_TOL, atol=MESH_TOL)),
+                  f"[mesh runs] particle gather {tag}: {field} off by {diffs[field]}")
+        log(f"[mesh runs] sharded_particle_run gather {tag} ({o['backend']}), N = "
+            f"{MESH_PARTICLES}, {MESH_PARTICLE_STEPS} steps f64 on {card}: vs "
+            f"{'the unsharded particle.run' if tag == 'world 1' else 'world 1'} max|diff| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+            + f" (rtol = atol = {MESH_TOL:g}), {int(est.resampled.sum())} resampling steps; "
+            + fmt_run(o["particle gather"], MESH_PARTICLE_STEPS))
+        island = island_gates(np, f"[mesh runs] particle island {tag}",
+                              o["particle local"]["result"], pp, kf)
+        transport = ("no ring (one rank)" if tag == "world 1" else
+                     "ring by isend/irecv " + ("staged through host memory (gloo)"
+                                               if o["ring staged"] else "on the card"))
+        log(f"[mesh runs] sharded_particle_run island {tag} ({o['backend']}), {transport}, "
+            f"N = {MESH_PARTICLES}, {MESH_PARTICLE_STEPS} steps f64 on {card}: {island}; "
+            + fmt_run(o["particle local"], MESH_PARTICLE_STEPS))
+
+    for tag, o in ranks:
+        states, covs = o["fusion act1"]
+        gap = float((states - central).abs().max())
+        check(gap < 1e-9, f"[mesh runs] sensor fusion act 1 {tag}: {gap} from the central KF")
+        big = o["fusion"]["result"]
+        diff = 0.0 if tag == "world 1" else max(float((a - b).abs().max()) for a, b in
+                                                zip(big, w1["fusion"]["result"]))
+        check(diff <= MESH_TOL, f"[mesh runs] sensor fusion {tag}: {diff} from world 1")
+        log(f"[mesh runs] sharded_sensor_fusion_run {tag} ({o['backend']}) on {card}: act 1 "
+            f"({n_s} sensors, {steps} steps) == central KF to {gap:.1e} (claim < 1e-9); "
+            f"{MESH_SENSORS} sensors x {MESH_SENSOR_STEPS} steps f64: max|diff| from world 1 "
+            f"{diff:.3g} (atol {MESH_TOL:g}); " + fmt_run(o["fusion"], MESH_SENSOR_STEPS))
+    log(f"[mesh runs] world 2 wall {wall2:.1f} s host clock (spawn, inputs, runs)")
+
+    t0 = time.perf_counter()
+    local = SAMPLES // (MULTI_SLICES * MULTI_CHIPS)
+    outs = _launch.spawn(multislice_rank, [(local,)] * (MULTI_SLICES * MULTI_CHIPS),
+                         timeout=900)
+    wall4 = time.perf_counter() - t0
+    for rank, o in enumerate(outs):
+        check(o["launches"] > 0, f"K1 was not launched on multislice rank {rank}")
+        ulps = max_ulps(o["result"], sharded_world1)
+        flat = max_ulps(o["flat"], sharded_world1)
+        check(ulps <= 1.0 and flat <= 1.0,
+              f"multislice rank {rank} differs from world 1 by {ulps} / {flat} ulp")
+        log(f"[mesh runs] multislice {MULTI_SLICES} x {MULTI_CHIPS} gloo rank {rank} (ranks "
+            f"along the slice axis {o['groups'][0]}, along the chip axis {o['groups'][1]}) on "
+            f"{card}: {local} members, "
+            f"K1 launches {o['launches']}; pooled over chip, then slice: {ulps:g} ulp from the "
+            f"one-rank [sharded] result, flat four-rank pooling {flat:g} ulp; sharded_forward "
+            f"{o['ms']:.3f} ms (CUDA events, mean of 3)")
+    log(f"[mesh runs] multislice wall {wall4:.1f} s host clock (spawn, build load, runs); "
+        f"phase {time.perf_counter() - t_phase:.1f} s host clock on {card}")
+    return sum(o["launches"] for o in outs)
+
+
 def kernel_entry(name, counts, max_err, ms, plain_ms, library_ms, bound_ms, bound_by,
                  **extra):
     return {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -3963,8 +4621,8 @@ def run():
                                timed("kernels vs plain", phase_k1_offset, gt, torch, device))}
     timed("K2 launch", phase_k2_launch, torch, device)
     mod, counts = timed("main path", phase_main_path, gt, torch, device)
-    world1, launches1 = timed("sharded", phase_sharded_world1, gt, torch, device)
-    launches2 = timed("sharded", phase_sharded_world2, world1)
+    sharded1, launches1 = timed("sharded", phase_sharded_world1, gt, torch, device)
+    launches2 = timed("sharded", phase_sharded_world2, sharded1)
     counts["fused_mc"] += launches1 + sum(launches2)
     times, full_err = timed("K1 full size", phase_full_size, mod)
     max_err["fused_mc"] = max(max_err["fused_mc"], full_err)
@@ -3992,6 +4650,10 @@ def run():
     timed("tracking", phase_tracking, gt, torch, device, card)
     timed("tracking parity", phase_tracking_parity, gt, torch, device, card)
     timed("analysis", phase_analysis, gt, torch, device, card)
+    # The host I/O tier and the rest of parallel.mesh; K1 runs again on
+    # the 2 x 2 multislice mesh.
+    timed("io", phase_io, gt, torch, device, card)
+    counts["fused_mc"] += timed("mesh runs", phase_mesh_runs, gt, torch, device, card, sharded1)
     log(f"[time] phases (s, host clock): {json.dumps(secs)}; whole script "
         f"{time.perf_counter() - t_run:.1f} s")
 

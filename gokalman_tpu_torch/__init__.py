@@ -40,7 +40,9 @@ bench_tracking.py's banks), the labelled filters (`filters.lmb`, and
 track-to-track fusion (`filters.fusion`), the consistency and
 observability diagnostics, the PCRB, the GLR jump detector and the
 OSPA / GOSPA metrics (`diagnostics`), system identification by EM and
-N4SID (`sysid`), and the tracing and timing helpers (`profiling`).
+N4SID (`sysid`), the tracing and timing helpers (`profiling`), and the
+host I/O tier: CSV export (`exporter`, through the C++ formatter of
+`native`) and checkpoints (`checkpoint`).
 Gradients flow through every `run`: `ops.scan.scan` takes its plain
 loop on the card where autograd records.
 
@@ -48,8 +50,9 @@ Importing the package builds and loads no kernel: the CUDA sources in
 `csrc/` are compiled at first use (`ops._build`).
 """
 
-from . import (c2d, chisquare, convert, diagnostics, dynamics, filters, linalg, montecarlo,
-               noise, od, ops, parallel, profiling, sysid, truth, types, workloads)
+from . import (c2d, checkpoint, chisquare, convert, diagnostics, dynamics, exporter, filters,
+               linalg, montecarlo, native, noise, od, ops, parallel, profiling, sysid, truth, types,
+               workloads)
 from .filters import (adaptive, enkf, glmb, gsf, imm, lmb, particle, rbpf, schmidt, srukf, ukf,
                       vanilla)
 from .types import FilterType
@@ -59,11 +62,13 @@ __version__ = "0.1.0"
 __all__ = [
     "adaptive",
     "c2d",
+    "checkpoint",
     "chisquare",
     "convert",
     "diagnostics",
     "dynamics",
     "enkf",
+    "exporter",
     "FilterType",
     "filters",
     "glmb",
@@ -72,6 +77,7 @@ __all__ = [
     "linalg",
     "lmb",
     "montecarlo",
+    "native",
     "noise",
     "od",
     "ops",

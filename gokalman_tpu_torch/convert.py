@@ -40,6 +40,10 @@ the card:
   `trajectory_from_numpy`: the dynamics records (`dynamics.stations.
   Station`, `dynamics.propagate.MeasurementSet` / `Trajectory`), so that
   both packages can run OD on one scenario.
+
+The host I/O tier and the sharded runs add no record: a checkpoint is
+read by either package as it is (`checkpoint`), and `parallel.mesh.Mesh`
+stands for a JAX `Mesh`, which holds no data.
 """
 
 from __future__ import annotations

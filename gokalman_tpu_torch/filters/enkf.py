@@ -17,9 +17,22 @@ standard normals of the whole run are drawn before the scan, as a
 perturbations), and `step` takes one row of it.  `draws(generator, ...)`
 makes them from a `torch.Generator` on the run's device, and
 `run(..., generator=)` calls it.  Tests reproduce the JAX package's
-streams by drawing them with JAX and passing them in.  The sharding
-arguments of the JAX step (member_offset, n_total, axis_name) are not
-ported here.
+streams by drawing them with JAX and passing them in.
+
+Sharding.  `new` and `step` take the member axis sharded over the ranks
+of a torch.distributed `group` (parallel.mesh.sharded_enkf_run): a rank
+holds members member_offset ... member_offset + N_local − 1 of an
+`n_total`-member ensemble and passes its own rows of the run's `Draws`.
+Each analysis sums its moment blocks over the group (JAX's `_psum` /
+`_global_moments`, enkf.py:126-136, :186-215) in five `all_reduce`s: the
+forecast mean [n], the predicted-measurement mean [p], one of the
+[n, n], [n, p] and [p, p] covariance blocks with the perturbation sum
+[p], the analysis mean [n] and the analysis covariance [n, n].  So the
+sharded run is the unsharded run on the same draws up to the order of
+the all-reduce's sums.  Every mean is a sum over the members divided by
+their count, sharded or not.  The step needs no member offset (its
+draws are the rank's rows already); the ETKF and the EnKS are not
+sharded, as in the JAX package.
 
 `run` goes through `ops.scan.scan`: one CUDA graph per step on the card
 for the stochastic EnKF and the EnKS.  The ETKF's analysis takes an
@@ -34,6 +47,7 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import linalg
 from .._device import resolve_device
@@ -75,20 +89,29 @@ def draws(generator: torch.Generator, steps: int, n_ens: int, n: int, p: int,
 
 
 def new(x0, p0, n_ens: int, generator: Optional[torch.Generator] = None, *, z=None,
-        dtype=None, device=None) -> State:
+        member_offset: int = 0, n_total: Optional[int] = None, dtype=None,
+        device=None) -> State:
     """Initial ensemble.  With standard normals `z` [N, n], or a
     generator to draw them, X_i = x0 + L0 z_i; with neither, the
     exact-moment `deterministic_ensemble`.  Tensors go to `device`, else
-    x0's or P0's, else the card."""
+    x0's or P0's, else the card.
+
+    A rank of a sharded run passes its `n_ens` members, rows
+    member_offset ... of an `n_total`-member ensemble: `z` then holds its
+    own rows, a generator draws all n_total rows and keeps the rank's
+    (the unsharded draw order), and the deterministic ensemble is the
+    rank's rows of the n_total-member one."""
     device = resolve_device(device, x0, p0, z)
     x0 = torch.as_tensor(x0, dtype=dtype, device=device)
     p0 = torch.as_tensor(p0, dtype=x0.dtype, device=device)
     linalg.check_dims((x0.shape[0], 1), tuple(p0.shape), "x0", "P0", "rows2cols")
+    total = n_ens if n_total is None else n_total
+    rows = slice(member_offset, member_offset + n_ens)
     if z is None and generator is not None:
-        z = torch.randn((n_ens, x0.shape[0]), generator=generator, dtype=x0.dtype,
-                        device=device)
+        z = torch.randn((total, x0.shape[0]), generator=generator, dtype=x0.dtype,
+                        device=device)[rows]
     if z is None:
-        ens = deterministic_ensemble(x0, p0, n_ens)
+        ens = deterministic_ensemble(x0, p0, total)[rows]
     else:
         z = torch.as_tensor(z, dtype=x0.dtype, device=device)
         ens = x0[None, :] + z @ linalg.chol_lower(p0).T
@@ -121,18 +144,34 @@ def gaspari_cohn(dist, c, *, device=None):
     return torch.clamp(out, min=0.0)
 
 
-def _moments(ens):
-    mean = torch.mean(ens, dim=-2)
+def _psum(group, *blocks):
+    """The blocks summed over the ranks of `group` in one all_reduce
+    (returned as they are without a group)."""
+    if group is None:
+        return blocks
+    flat = torch.cat([b.reshape(-1) for b in blocks])
+    dist.all_reduce(flat, group=group)
+    return tuple(part.view_as(b) for part, b in
+                 zip(flat.split([b.numel() for b in blocks]), blocks))
+
+
+def _moments(ens, n_total=None, group=None):
+    """Mean over the member axis (dim -2; sharded over `group` with
+    `n_total` members in all) and the local deviations from it."""
+    n = ens.shape[-2] if n_total is None else n_total
+    (total,) = _psum(group, torch.sum(ens, dim=-2))
+    mean = total / n
     return mean, ens - mean[..., None, :]
 
 
-def _forecast(state: State, noise: Noise, fx: Callable, zq, control, inflation):
+def _forecast(state: State, noise: Noise, fx: Callable, zq, control, inflation,
+              n_total=None, group=None):
     """Members through fx (+ process noise z @ sqrt(Q)ᵀ): the forecast
     ensemble with inflated anomalies, its mean and the anomalies."""
     prop = fx(state.ensemble) if control is None else fx(state.ensemble, control)
     if zq is not None:
         prop = prop + zq @ noise.sqrt_q.T
-    mean, dev = _moments(prop)
+    mean, dev = _moments(prop, n_total, group)
     return mean + dev * inflation, mean, dev * inflation
 
 
@@ -149,36 +188,39 @@ def _inflation(inflation, has, like):
 
 @linalg.highp
 def step(noise: Noise, state: State, measurement, fx: Callable, hx: Callable,
-         draws: Draws, control=None, inflation=1.0, has=None, loc_xy=None, loc_yy=None):
+         draws: Draws, control=None, inflation=1.0, has=None, loc_xy=None, loc_yy=None, *,
+         n_total: Optional[int] = None, group=None):
     """One stochastic-EnKF step: forecast with process noise
     (draws.zq [N, n]) and the perturbed-observation analysis (draws.zr
     [N, p], centred so the analysis mean is exact).  `inflation`
     multiplies the forecast anomalies; `has` (0-d bool) masks the
     analysis; `loc_xy` [n, p] / `loc_yy` [p, p] are Schur-product
-    localization tapers (`gaspari_cohn`)."""
-    n_ens = state.ensemble.shape[0]
+    localization tapers (`gaspari_cohn`).  With a `group`, the state and
+    draws hold this rank's members of `n_total` (module docstring)."""
+    n_ens = state.ensemble.shape[0] if n_total is None else n_total
     ens_f, x_pred, dev = _forecast(state, noise, fx, draws.zq, control,
-                                   _inflation(inflation, has, state.ensemble))
-    p_pred = _cov(dev, dev, n_ens)
+                                   _inflation(inflation, has, state.ensemble), n_ens, group)
     ys = hx(ens_f)  # [N, p]
-    y_mean, y_dev = _moments(ys)
-    pxy = _cov(dev, y_dev, n_ens)
-    s_yy = _cov(y_dev, y_dev, n_ens)
+    y_mean, y_dev = _moments(ys, n_ens, group)
+    v = draws.zr @ noise.sqrt_r.T
+    p_pred, pxy, s_yy, v_sum = _psum(group, dev.T @ dev, dev.T @ y_dev, y_dev.T @ y_dev,
+                                     torch.sum(v, dim=0))
+    p_pred, pxy, s_yy = (c / (n_ens - 1) for c in (p_pred, pxy, s_yy))
     pyy = s_yy + noise.r
     if loc_xy is not None:
         pxy = pxy * loc_xy
     if loc_yy is not None:
         pyy = s_yy * loc_yy + noise.r
     k_gain = linalg.solve_psd(pyy, pxy.T).T  # [n, p]
-    v = draws.zr @ noise.sqrt_r.T
-    v = v - (torch.sum(v, dim=0) / n_ens)[None, :]
+    v = v - (v_sum / n_ens)[None, :]
     innovation = measurement - y_mean
     if has is not None:
         k_gain = torch.where(has, k_gain, 0.0)
         innovation = torch.where(has, innovation, 0.0)
     ens_a = ens_f + (innovation[None, :] + v - y_dev) @ k_gain.T
-    x, dev_a = _moments(ens_a)
-    est = Estimate(x, y_mean, innovation, _cov(dev_a, dev_a, n_ens), p_pred, k_gain)
+    x, dev_a = _moments(ens_a, n_ens, group)
+    (cov_a,) = _psum(group, dev_a.T @ dev_a)
+    est = Estimate(x, y_mean, innovation, cov_a / (n_ens - 1), p_pred, k_gain)
     return State(ens_a, state.k + 1), est
 
 

@@ -8,8 +8,32 @@ indices are the systematic-resample ancestors where the ESS fell below
 the threshold and the identity elsewhere (`torch.where` on the device,
 so no step reads the ESS on the host).  Also the stratified and
 multinomial resamplers and the forward-filter backward-smoother (FFBS).
-Only the single-device step is ported; the all-gather and RNA branches
-of the JAX step (its sharding arguments) are not.
+
+Sharding (parallel.mesh.sharded_particle_run).  `new` and `step` take
+the particle axis sharded over the ranks of a torch.distributed `group`:
+a rank holds particles member_offset ... member_offset + N_local − 1 of
+`n_total` and its rows of the run's draws.  Normalization and the ESS
+are global logsumexps (a MAX all_reduce, then a SUM one, JAX's
+`_global_logsumexp`, particle.py:41-46), the moments sums over the
+group.  Resampling has two schemes:
+
+- gather (particle.py:277-292): the [N] log-weights and [N, n]
+  particles of every rank in one zero-padded all_reduce (adding zeros
+  is exact, and gloo does not all_gather CUDA tensors), the one ancestor
+  vector of the shared uniform on every rank, and the rank's slice of
+  it: the unsharded filter up to the order of the sums;
+- island, `local_resampling=True` (particle.py:243-276; RNA, Bolic,
+  Djuric & Hong 2005): the rank resamples its own particles from
+  lw − logsumexp(lw) with its own uniform (draws.u is [W] per step, one
+  per rank, where JAX folds the rank into the key), each keeps the
+  island weight W_d / N_local, and on resample steps only the upper
+  half of the particles and their weights moves to rank (d + 1) % W by
+  point-to-point `isend` / `irecv`, both posted before either waits.
+  Nothing N-sized moves, per-rank memory stays O(N_local), and the
+  step reads the resample decision on the host (one sync).  gloo's
+  point-to-point takes host tensors only, so on a gloo group the moved
+  half of a CUDA cloud is staged through host memory (`ring_staged`).
+  The group's size is JAX's `n_shards`.
 
 Callables are batch-native: `propagate(particles [N, n], z [N, n][, u])`
 and `loglik(particles [N, n], y) -> [N]` act on the whole cloud, and
@@ -33,11 +57,13 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import linalg
 from .._device import resolve_device
 from ..noise import Noise
 from ..ops.scan import scan
+from .enkf import _psum
 
 
 class State(NamedTuple):
@@ -75,22 +101,28 @@ def draws(generator: torch.Generator, steps: int, n_particles: int, n: int,
 
 
 def new(x0, p0, n_particles: int, generator: Optional[torch.Generator] = None, *, z=None,
-        dtype=None, device=None) -> State:
+        member_offset: int = 0, n_total: Optional[int] = None, dtype=None,
+        device=None) -> State:
     """Initial cloud x_i = x0 + L0 z_i with uniform weights, from standard
     normals `z` [N, n] or drawn from `generator`.  Tensors go to
-    `device`, else x0's or P0's, else the card."""
+    `device`, else x0's or P0's, else the card.  A rank of a sharded
+    run passes its `n_particles`, rows member_offset ... of an
+    `n_total`-particle cloud: `z` then holds its rows, a generator draws
+    all n_total rows and keeps the rank's, and the weights are
+    1 / n_total."""
     device = resolve_device(device, x0, p0, z)
     x0 = torch.as_tensor(x0, dtype=dtype, device=device)
     p0 = torch.as_tensor(p0, dtype=x0.dtype, device=device)
     linalg.check_dims((x0.shape[0], 1), tuple(p0.shape), "x0", "P0", "rows2cols")
+    total = n_particles if n_total is None else n_total
     if z is None:
         if generator is None:
             raise ValueError("particle.new needs draws z or a generator")
-        z = torch.randn((n_particles, x0.shape[0]), generator=generator, dtype=x0.dtype,
-                        device=device)
+        z = torch.randn((total, x0.shape[0]), generator=generator, dtype=x0.dtype,
+                        device=device)[member_offset:member_offset + n_particles]
     z = torch.as_tensor(z, dtype=x0.dtype, device=device)
     pts = x0[None, :] + z @ linalg.chol_lower(p0).T
-    lw = x0.new_full((n_particles,), -math.log(float(n_particles)))
+    lw = x0.new_full((n_particles,), -math.log(float(total)))
     return State(pts, lw, torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -155,14 +187,28 @@ def effective_sample_size(log_weights):
     return torch.exp(-torch.logsumexp(2.0 * lw, 0))
 
 
-def _weighted_moments(w, pts):
+def _weighted_moments(w, pts, group=None):
     """Weighted mean and unbiased weighted covariance over the particle
-    axis (dim -2), the divisor guarded against full degeneracy."""
-    mean = torch.einsum("...i,...ij->...j", w, pts)
+    axis (dim -2; sharded over `group`), the divisor guarded against
+    full degeneracy."""
+    (mean,) = _psum(group, torch.einsum("...i,...ij->...j", w, pts))
     dev = pts - mean[..., None, :]
-    cov = torch.einsum("...i,...ij,...ik->...jk", w, dev, dev) / torch.clamp(
-        1.0 - torch.sum(w * w, dim=-1), min=1e-12)[..., None, None]
+    cov, w2 = _psum(group, torch.einsum("...i,...ij,...ik->...jk", w, dev, dev),
+                    torch.sum(w * w, dim=-1))
+    cov = cov / torch.clamp(1.0 - w2, min=1e-12)[..., None, None]
     return mean, linalg.sym(cov)
+
+
+def _global_logsumexp(lw, group=None):
+    """logsumexp over the particle axis, sharded over `group`: the MAX
+    all_reduce of the ranks' maxima, then the SUM one of exp(lw − max)."""
+    if group is None:
+        return torch.logsumexp(lw, 0)
+    m = torch.amax(lw)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    s = torch.sum(torch.exp(lw - m))
+    dist.all_reduce(s, group=group)
+    return torch.log(s) + m
 
 
 def _resample(do_res, idx, lw, *fields):
@@ -175,31 +221,103 @@ def _resample(do_res, idx, lw, *fields):
     return (lw,) + tuple(f.index_select(0, take) for f in fields)
 
 
+def ring_staged(group, device) -> bool:
+    """Whether the island ring stages a cloud on `device` through host
+    memory on `group`: gloo's send / recv take host tensors only."""
+    return torch.device(device).type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _ring_shift(x, group):
+    """Send `x` to rank (d + 1) % W and return what rank (d − 1) % W
+    sent; both sides are posted before either waits."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    staged = ring_staged(group, x.device)
+    send = x.cpu() if staged else x.contiguous()
+    recv = torch.empty_like(send)
+    reqs = [dist.isend(send, dist.get_global_rank(group, (rank + 1) % world), group=group),
+            dist.irecv(recv, dist.get_global_rank(group, (rank - 1) % world), group=group)]
+    for req in reqs:
+        req.wait()
+    return recv.to(x.device) if staged else recv
+
+
+def _all_gather_rows(x, group):
+    """[W·N_local, ...]: every rank's x [N_local, ...] in rank order, by
+    one all_reduce of a buffer that is zero outside this rank's rows."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    buf = x.new_zeros((world,) + tuple(x.shape))
+    buf[rank] = x
+    dist.all_reduce(buf, group=group)
+    return buf.reshape((world * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def _gather_resample(do_res, lw, pts, u, member_offset, n, group):
+    """The unsharded resample of the gathered cloud; this rank's slice."""
+    n_local = lw.shape[0]
+    full = _all_gather_rows(torch.cat([lw[:, None], pts], dim=1), group)
+    lw_all, pts_all = full[:, 0], full[:, 1:]
+    idx = systematic_resample_indices(lw_all, u)[member_offset:member_offset + n_local]
+    keep = torch.arange(member_offset, member_offset + n_local, dtype=idx.dtype,
+                        device=idx.device)
+    take = torch.where(do_res, idx, keep)
+    lw = torch.where(do_res, torch.full_like(lw, -math.log(float(n))),
+                     lw_all.index_select(0, take))
+    return lw, pts_all.index_select(0, take)
+
+
+def _island_resample(do_res, lw, pts, u, group):
+    """RNA: resample within the island from its own uniform u[rank], keep
+    the island weight, and on resample steps ring-shift the upper half."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n_local = lw.shape[0]
+    log_wd = torch.logsumexp(lw, 0)
+    idx = systematic_resample_indices(lw - log_wd, u[rank])
+    take = torch.where(do_res, idx, torch.arange(n_local, dtype=idx.dtype, device=idx.device))
+    lw = torch.where(do_res, (log_wd - math.log(float(n_local))).expand(n_local),
+                     lw.index_select(0, take))
+    pts = pts.index_select(0, take)
+    half = n_local // 2
+    if half == 0 or world == 1 or not bool(do_res):
+        return lw, pts
+    moved = _ring_shift(torch.cat([lw[half:, None], pts[half:]], dim=1), group)
+    return torch.cat([lw[:half], moved[:, 0]]), torch.cat([pts[:half], moved[:, 1:]])
+
+
 @linalg.highp
 def step(state: State, measurement, propagate: Callable, loglik: Callable, draws: Draws,
-         control=None, resample_threshold: float = 0.5, has=None):
+         control=None, resample_threshold: float = 0.5, has=None, *, member_offset: int = 0,
+         n_total: Optional[int] = None, group=None, local_resampling: bool = False):
     """One SIR step: propagate (draws.z [N, n]), reweight by the
     likelihood, systematic-resample (draws.u) where the ESS falls below
     `resample_threshold * N`.  `has` (0-d bool) masks the measurement: a
     masked step keeps the weights, carries zero evidence and does not
-    resample."""
-    n = state.particles.shape[0]
+    resample.  With a `group`, the state and draws.z hold this rank's
+    particles of `n_total` from `member_offset`, and `local_resampling`
+    picks the island scheme (draws.u [W]) over the gather (module
+    docstring)."""
+    n_local = state.particles.shape[0]
+    n = n_local if n_total is None else n_total
     pts = (propagate(state.particles, draws.z) if control is None
            else propagate(state.particles, draws.z, control))
     ll = loglik(pts, measurement)  # [N]
     if has is not None:
         ll = torch.where(has, ll, 0.0)
     lw = state.log_weights + ll
-    log_inc = torch.logsumexp(lw, 0)
+    log_inc = _global_logsumexp(lw, group)
     lw = lw - log_inc
     if has is not None:
         log_inc = torch.where(has, log_inc, 0.0)
-    mean, cov = _weighted_moments(torch.exp(lw), pts)
-    ess = torch.exp(-torch.logsumexp(2.0 * lw, 0))
+    mean, cov = _weighted_moments(torch.exp(lw), pts, group)
+    ess = torch.exp(-_global_logsumexp(2.0 * lw, group))
     do_res = ess < resample_threshold * n
     if has is not None:
         do_res = do_res & has
-    lw, pts = _resample(do_res, systematic_resample_indices(lw, draws.u), lw, pts)
+    if group is None:
+        lw, pts = _resample(do_res, systematic_resample_indices(lw, draws.u), lw, pts)
+    elif local_resampling:
+        lw, pts = _island_resample(do_res, lw, pts, draws.u, group)
+    else:
+        lw, pts = _gather_resample(do_res, lw, pts, draws.u, member_offset, n, group)
     est = Estimate(mean, cov, ess, log_inc, do_res)
     return State(pts, lw, state.k + 1), est
 

@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import linalg
+from . import linalg, native
 from .filters import vanilla
 
 
@@ -39,9 +39,11 @@ class MonteCarloRuns(NamedTuple):
 
     def as_csv(self, headers) -> list[str]:
         """One CSV blob per state component: columns are each run, then
-        mean, then stddev; one row per step (montecarlo.go:62-89).
-        Values use Python's `%f`, as the JAX package does without its
-        native formatter."""
+        mean, then stddev; one row per step (montecarlo.go:62-89).  The
+        states, means and stddevs reach the host in one transfer each;
+        values are printf("%f") through the native formatter
+        (`native.format_csv`), or Python's f"{v:f}" where it is
+        unavailable, with the same bytes."""
         states = self.estimates.state.detach().cpu().numpy()  # [S, T, n]
         means = self.mean().detach().cpu().numpy()
         devs = self.stddev().detach().cpu().numpy()
@@ -52,6 +54,10 @@ class MonteCarloRuns(NamedTuple):
             matrix = np.concatenate(
                 [states[:, :, i].T, means[:, i:i + 1], devs[:, i:i + 1]],
                 axis=1)  # [T, S+2]
+            text = native.format_csv(matrix)
+            if text is not None:
+                out.append(hdr + "\n" + text.rstrip("\n"))
+                continue
             lines = [hdr]
             for k in range(self.steps):
                 lines.append(",".join(f"{v:f}" for v in matrix[k]))

@@ -46,15 +46,20 @@ def pool_moments(count: int, sums: torch.Tensor, m2: torch.Tensor, group):
     rank's own mean.  Two all_reduce sums: Σ count and Σ sums, then
     Σ [M2_l + m_l (x̄_l − x̄)²], the pooled M2 without the cancellation of
     Σx² − N·x̄² where |x̄| ≫ σ.  all_reduce only: gloo reduces CUDA
-    tensors but does not all_gather them."""
-    flat = torch.cat([sums.reshape(-1), sums.new_tensor([count])])
-    dist.all_reduce(flat, group=group)
-    total, tot = flat[-1], flat[:-1].view_as(sums)
-    k = m2.shape[0]
-    dev = sums[-k:] / count - tot[-k:] / total
-    m2 = m2 + count * dev * dev
-    dist.all_reduce(m2, group=group)
-    return total, tot, m2
+    tensors but does not all_gather them.  `group` may be a tuple of
+    groups (a mesh's axes, innermost first): the moments are pooled over
+    each in turn."""
+    for g in group if isinstance(group, tuple) else (group,):
+        n = count.reshape(1) if isinstance(count, torch.Tensor) else sums.new_tensor([count])
+        flat = torch.cat([sums.reshape(-1), n])
+        dist.all_reduce(flat, group=g)
+        total, tot = flat[-1], flat[:-1].view_as(sums)
+        k = m2.shape[0]
+        dev = sums[-k:] / count - tot[-k:] / total
+        m2 = m2 + count * dev * dev
+        dist.all_reduce(m2, group=g)
+        count, sums = total, tot
+    return count, sums, m2
 
 
 def _eye(n, like):

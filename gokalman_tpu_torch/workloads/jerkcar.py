@@ -68,3 +68,22 @@ def schedule(yacc, ypos, uvec, info_rinv_quirk: bool = False):
                   np.stack([yacc, np.zeros(t)], axis=1))
     controls = np.asarray(uvec)[:t, None]
     return ys, controls, hs, rs, masks
+
+
+def stand_in_inputs(steps: int = 2000, seed: int = 7):
+    """(uvec [steps + 1], yacc [steps], ypos [steps]): examples/jerkcar.py's
+    stand-in for the reference's recorded inputs (jerkcar.py:38-50), the
+    truth from the car's F / G driven by 0.1 N(0, 1) controls and measured
+    with σ² = 0.05 (acceleration + bias) and 0.5 (position).  Drawn with
+    numpy's generator from `seed`: the example draws with jax.random, so
+    the numbers differ and the system and noise levels do not."""
+    rng = np.random.default_rng(seed)
+    uvec = 0.1 * rng.standard_normal(steps + 1)
+    vs = rng.standard_normal((steps, 2))
+    x = np.array([0.0, 0.45, 0.0, 0.09])
+    yacc, ypos = np.empty(steps), np.empty(steps)
+    for k in range(steps):
+        x = F @ x + G[:, 0] * uvec[k]
+        yacc[k] = H2[0] @ x + np.sqrt(0.05) * vs[k, 0]
+        ypos[k] = x[0] + np.sqrt(0.5) * vs[k, 1]
+    return uvec, yacc, ypos
