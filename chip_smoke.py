@@ -52,8 +52,7 @@ and Huber banks of 4,096 targets (`[bank]`).  Then bench_nav.py's two
 rows (`[nav]`: a fleet of 512 vehicles x 200 IMU steps, f32, through
 the invariant EKF as a bank and its invariant RTS smoother, inside
 bench_nav.py's RMS gates, with steps/s, ms per run, kernels per step,
-busy share and peak memory) and examples/attitude.py's scenario through
-the MEKF in f64 with its five claims; and the attitude / navigation and
+busy share and peak memory); and the attitude / navigation and
 factored runners (MEKF, USQUE, IEKF, its RTS, U-D, SISE, Schmidt, the
 consider analyses, MHE) in f64 on small systems (`[factored]`), each
 held card against CPU and graph against eager, with its syncs and
@@ -84,7 +83,13 @@ runs]`: the sharded EnKF (the L96 leg), the sharded particle filter
 (gather and island resampling, 262,144 particles f64) and the sharded
 sensor fusion (examples/sensor_network.py's act 1 and 4,096 sensors) in
 an NCCL group of one and on two gloo ranks, and K1 on a 2 x 2
-multislice mesh of four gloo ranks held to the one-rank result.  Every
+multislice mesh of four gloo ranks held to the one-rank result.  Then the driver
+entry points (`[graft]`: `graft_entry.entry()`, and `dryrun_multichip(8)`,
+the eleven sharded pipelines of `__graft_entry__.py` as 8 gloo ranks on
+the one card, K1 launched on each, every pipeline held to its unsharded
+run) and `[examples]`: the twelve examples/*.py scripts at their own
+sizes through `gokalman_tpu_torch.examples`, every claim the scripts
+assert asserted, each claimed value printed beside its bound.  Every
 phase raises on failure; there is no CPU or plain-version fallback.  The
 last line of standard output is one JSON object with the device; the
 line before it lists each kernel's launches on the counted paths, its
@@ -2894,10 +2899,6 @@ NAV_SIG_G, NAV_SIG_A, NAV_SIG_M = 2e-3, 2e-2, 0.05
 NAV_LANDMARKS = ((15.0, 0.0, 2.0), (0.0, 15.0, 1.0), (-12.0, -4.0, 3.0))
 NAV_RMS_GATE = 0.15  # m, tail position RMS
 NAV_ROUNDS = 3  # timed calls after a warm-up
-# examples/attitude.py's scenario: 10 Hz gyro for 10 minutes, a two-vector
-# star tracker at 1 Hz with a 60 s outage, 20 / -15 / 12 degrees off.
-ATT_DT, ATT_STEPS, ATT_SV, ATT_SU, ATT_SIG = 0.1, 6000, 5e-5, 1e-7, 3e-4
-ATT_BETA = (1.5e-3, -8e-4, 4e-4)
 
 
 def nav_fleet(np, seed):
@@ -2938,27 +2939,6 @@ def nav_fleet(np, seed):
     return ps, gyro, accel, obs, masks
 
 
-def attitude_example(np, torch, att, seed=42):
-    """examples/attitude.py:simulate through the port's attitude functions
-    on the CPU in f64: truth quaternions, gyro, star-tracker vectors and
-    masks."""
-    rng = np.random.default_rng(seed)
-    refs = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
-    q = att.quat_identity(dtype=torch.float64, device="cpu")
-    qs, omegas, obs, masks = [], [], [], []
-    for k in range(ATT_STEPS):
-        t = k * ATT_DT
-        w_true = 0.01 * np.array([np.sin(0.005 * t), np.cos(0.008 * t), 0.7])
-        q = att.propagate_quat(q, torch.as_tensor(w_true), ATT_DT)
-        qs.append(q)
-        omegas.append(w_true + np.array(ATT_BETA) + ATT_SV / np.sqrt(ATT_DT) * rng.standard_normal(3))
-        a = att.attitude_matrix(q).numpy()
-        obs.append(refs @ a.T + ATT_SIG * rng.standard_normal((2, 3)))
-        on = (k % 10 == 0) and not (3000 <= k < 3600)
-        masks.append([on, on])
-    return refs, torch.stack(qs), np.array(omegas), np.array(obs), np.array(masks)
-
-
 def phase_nav(gt, torch, device, card):
     """[nav]: bench_nav.py's two rows on the card and examples/attitude.py's
     claims.  The fleet (`nav_fleet`, B = 512 x T = 200 IMU steps at dt 0.02,
@@ -2969,14 +2949,11 @@ def phase_nav(gt, torch, device, card):
     the filter's and < 0.15 m.  Each row: ms per run (CUDA events, median of
     NAV_ROUNDS after a warm-up, capture included), bench_nav's steps/s,
     kernels per step and device busy share (torch.profiler), the run's peak
-    memory.  Then the attitude example's scenario (6,000 gyro steps in f64)
-    through `mekf.run` on the card, with its five printed claims asserted:
-    tail error < 0.02 degrees, bias error < 5e-5 rad/s, tail NEES in (1, 7),
-    outage error growth > 2x, > 95% of outage steps inside 3.2 sigma."""
+    memory.  examples/attitude.py's five claims are held by [examples]
+    (`examples.attitude`)."""
     import numpy as np
 
-    from gokalman_tpu_torch.dynamics import attitude as att
-    from gokalman_tpu_torch.filters import iekf, mekf
+    from gokalman_tpu_torch.filters import iekf
     from gokalman_tpu_torch.ops.bank import tile
 
     t_phase = time.perf_counter()
@@ -3035,38 +3012,6 @@ def phase_nav(gt, torch, device, card):
     log(f"[nav] gates: fleet {filt:.4f} m < {NAV_RMS_GATE}; smoother {smooth:.4f} m < filter "
         f"and < {NAV_RMS_GATE}")
 
-    # examples/attitude.py on the card, f64.
-    t0 = time.perf_counter()
-    refs, qs, omegas, body, att_masks = attitude_example(np, torch, att)
-    qs = qs.to(device)
-    q0 = att.apply_error(qs[0], torch.as_tensor(np.deg2rad([20.0, -15.0, 12.0]), device=device))
-    p0 = np.diag([0.4**2] * 3 + [5e-3**2] * 3)
-    amodel, ast = mekf.new(q0, p0, refs, ATT_SV, ATT_SU, ATT_SIG, ATT_DT, dtype=torch.float64,
-                           device=device)
-    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
-    _, est = mekf.run(amodel, ast, f64(omegas), f64(body), torch.as_tensor(att_masks,
-                                                                            device=device))
-    errs = att.attitude_error_angle(est.q, qs).cpu().numpy()
-    err0 = float(att.attitude_error_angle(q0, qs[0]))
-    tail = slice(2000, 3000)  # converged, before the outage
-    tail_deg = np.rad2deg(errs[tail]).mean()
-    beta_err = np.abs(est.beta[2999].cpu().numpy() - np.array(ATT_BETA)).max()
-    dth = att.rotvec_from_quat(att.quat_compose(est.q, att.quat_conj(qs))).cpu().numpy()
-    ptt = est.covariance[:, :3, :3].cpu().numpy()
-    nees = np.einsum("ti,tij,tj->t", dth[tail], np.linalg.inv(ptt[tail]), dth[tail]).mean()
-    outage = slice(3000, 3600)
-    sigma = np.sqrt(np.trace(ptt[outage], axis1=1, axis2=2))
-    grow = np.rad2deg(errs[outage]).max() / tail_deg
-    inside = (np.linalg.norm(dth[outage], axis=1) < 3.2 * sigma).mean()
-    log(f"[nav] attitude example (examples/attitude.py, {ATT_STEPS} steps f64 on {card}): "
-        f"initial error {np.rad2deg(err0):.1f} deg; converged tail {tail_deg * 3600:.2f} arcsec "
-        f"({tail_deg:.3g} deg); bias error {beta_err:.3g} rad/s; tail NEES {nees:.3f}; outage "
-        f"error grew {grow:.1f}x, {inside:.1%} of outage steps inside 3.2 sigma; "
-        f"{time.perf_counter() - t0:.1f} s host clock")
-    check(np.rad2deg(err0) > 20.0 and tail_deg < 0.02, f"[nav] attitude tail error {tail_deg} deg")
-    check(beta_err < 5e-5, f"[nav] gyro bias error {beta_err}")
-    check(1.0 < nees < 7.0, f"[nav] attitude tail NEES {nees}")
-    check(grow > 2.0 and inside > 0.95, f"[nav] outage growth {grow}, inside {inside}")
     log(f"[nav] phase {time.perf_counter() - t_phase:.1f} s host clock on {card}")
     return res
 
@@ -3082,15 +3027,14 @@ def phase_nav(gt, torch, device, card):
 # a bank (scene 27); the pdaf row prints its lost scenes beside its gate.
 TRACK_SEEDS = {"bank1": 11, "bank2": 12, "fusion": 13, "lifecycle": 14}
 TRACK_SCENES, TRACK_FRAMES = 256, 200
-TRACK_ROUNDS = 3  # timed calls after a warm-up
+# One timed call after a warm-up, so that the script's seconds stay
+# under its ~700 s budget on the slower hosts.
+TRACK_ROUNDS = 1
 TRACK_PROFILED_FRAMES = (5, 15)  # profiled runs whose difference is per step
 TRACK_OSPA_CHUNK = 16  # scenes per lifecycle OSPA call: 8! assignments per frame
 TRACK_GIBBS_KEYS = {"glmb": 21, "glmb_dense": 23}  # bench_tracking.py:677, :882
 GLMB_DENSE_SCENES = 32  # bench_tracking.py:976
 GLMB_STAGE_FRAME = 20  # the frame whose step `glmb_stages` breaks down
-# glmb_dense's run takes seconds (~1.2e10 Gumbels): within the script's
-# budget it is timed once after its warm-up.
-TRACK_ROUNDS_OF = {"glmb_dense": 1}
 
 
 def track_rms(torch, est_pos, truth_pos, tail, loss_thresh=None):
@@ -3437,8 +3381,8 @@ def phase_tracking(gt, torch, device, card):
     mapped over the scenes (fusion: one `torch.func.vmap` over the 51,200
     problems, no scan).  The first call gives the row's read-outs, held to
     bench_tracking.py's gates; then ms per run (CUDA events, median of
-    TRACK_ROUNDS after that warm-up, capture included; glmb_dense timed
-    once, TRACK_ROUNDS_OF), the rate under bench_tracking's metric name,
+    TRACK_ROUNDS after that warm-up, capture included), the rate under
+    bench_tracking's metric name,
     kernels per step and device busy share (torch.profiler: per step from the
     difference of runs over the first TRACK_PROFILED_FRAMES frames;
     fusion: of the call), and the run's peak memory; for the GLMB rows
@@ -3463,8 +3407,7 @@ def phase_tracking(gt, torch, device, card):
                   if a.is_floating_point()), f"[tracking] {name}: non-finite output")
         scores = score(out)
         del out
-        rounds = TRACK_ROUNDS_OF.get(name, TRACK_ROUNDS)
-        times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(rounds))
+        times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(TRACK_ROUNDS))
         ms = times[len(times) // 2]
         if name == "t2t_fusion":
             prof = launch_profile(call, cpu=False)
@@ -3489,8 +3432,8 @@ def phase_tracking(gt, torch, device, card):
             + ", ".join(f"{k} {v:.4f}" for k, v in scores.items() if k != "gates_pass")
             + f", gates {'pass' if scores['gates_pass'] else 'FAIL'}; {metric} {rate:.6g} "
             f"{unit}; {ms:.3f} ms per run (CUDA events, "
-            + (f"median of {rounds} after a warm-up; min {times[0]:.3f}, max {times[-1]:.3f}"
-               if rounds > 1 else "one call after a warm-up")
+            + (f"median of {TRACK_ROUNDS} after a warm-up; min {times[0]:.3f}, max "
+               f"{times[-1]:.3f}" if TRACK_ROUNDS > 1 else "one call after a warm-up")
             + f"; capture included); peak memory of the run {peak / 2**20:.1f} MiB; {busy}; "
             f"{time.perf_counter() - t0:.1f} s host clock")
         if name in stage_inputs:
@@ -3981,7 +3924,6 @@ IO_MATRIX = (4_096, 64)  # the formatter's byte-identity check
 IO_RUNS, IO_STEPS = 8_192, 1_000  # as_csv's card run: 6 components x 1,000 x 8,194 values
 IO_PY_SHARE = 64  # the Python path formats 1/64 of the rows, scaled up
 CKPT_SPLIT = 500  # the [bank] IMM bank stops here, is saved, restored and finished
-JERK_HEADERS = ["position", "velocity", "acceleration", "bias"]
 
 
 def edge_matrix(np, shape, seed):
@@ -4000,50 +3942,26 @@ def python_csv(matrix):
 
 
 def jerkcar_exports(gt, torch, device, tmp, card):
-    """examples/jerkcar.py on the card: its stand-in inputs through
-    vanilla.run, sqrt.run (upper predicted factor) and information.run
-    from zero information, each drained by CSVExporter and by
-    AsyncCSVExporter (the initial estimate, then write_all).  The two
-    files must agree but for their timestamp lines, and read_csv must
+    """examples/jerkcar.py on the card through the example module
+    (`examples.jerkcar.run_filters`: its stand-in inputs through
+    vanilla.run, sqrt.run with the upper predicted factor and
+    information.run from zero information), each drained by CSVExporter
+    and by AsyncCSVExporter (the initial estimate, then write_all).  The
+    two files must agree but for their timestamp lines, and read_csv must
     give back the values and ±2σ bounds to %f's rounding."""
-    import types
-
     import numpy as np
 
     from gokalman_tpu_torch import exporter
-    from gokalman_tpu_torch.filters import information, sqrt, vanilla
+    from gokalman_tpu_torch.examples import jerkcar
 
-    jc = gt.workloads.jerkcar
-    f64 = torch.float64
-    as_t = lambda arrays: [torch.as_tensor(a, device=device) for a in arrays]
-    uvec, yacc, ypos = jc.stand_in_inputs()
-    ys, us, hs, rs, masks = as_t(jc.schedule(yacc, ypos, uvec))
-    iys, ius, ihs, irs, imasks = as_t(jc.schedule(yacc, ypos, uvec, info_rinv_quirk=True))
-    vmodel, vst = vanilla.new(jc.X0, jc.P0, jc.F, jc.G, jc.H1,
-                              gt.noise.noiseless(jc.Q, jc.R, dtype=f64), dtype=f64)
-    smodel, sst = sqrt.new(jc.X0, jc.P0, jc.F, jc.G, jc.H1,
-                           gt.noise.Noise(jc.Q, jc.R, np.linalg.cholesky(jc.Q),
-                                          np.linalg.cholesky(jc.R)), dtype=f64)
-    imodel, ist = information.new(np.zeros(4), np.zeros((4, 4)), jc.F, jc.G, jc.H2,
-                                  gt.noise.noiseless(jc.Q, jc.RA, dtype=f64), dtype=f64)
-    runs = {
-        "vanilla": (lambda: vanilla.run(vmodel, vst, ys, us, hs=hs, rs=rs, meas_masks=masks)[1],
-                    jc.X0, jc.P0),
-        "sqrt": (lambda: sqrt.run(smodel, sst, ys, us, hs=hs, rs=rs, meas_masks=masks,
-                                  go_upper_pred_factor=True)[1], jc.X0, jc.P0),
-        "information": (lambda: information.run(imodel, ist, iys, ius, hs=ihs, rs=irs,
-                                                meas_masks=imasks)[1],
-                        np.zeros(4), np.zeros((4, 4)))}
-    for name, (call, x0, p0) in runs.items():
-        ests = call()
+    filters = jerkcar.run_filters(*gt.workloads.jerkcar.stand_in_inputs(), device)
+    for name, (ests, est0) in filters.items():
         torch.cuda.synchronize()
-        est0 = types.SimpleNamespace(state=torch.as_tensor(x0, device=device),
-                                     covariance=torch.as_tensor(p0, device=device))
         secs, bodies = {}, {}
         for cls in ("CSVExporter", "AsyncCSVExporter"):
             fname = f"{name}_{cls}.csv"
             t0 = time.perf_counter()
-            with getattr(exporter, cls)(JERK_HEADERS, tmp, fname, 2.0) as e:
+            with getattr(exporter, cls)(jerkcar.HEADERS, tmp, fname, 2.0) as e:
                 e.write(est0)
                 e.write_all(ests)
             secs[cls] = time.perf_counter() - t0
@@ -4202,7 +4120,7 @@ MESH_TOL = 1e-9  # f64: gather vs unsharded, fusion vs the central KF, world 2 v
 # moment sums are added in another order (values of order 10, f32 ulps
 # of ~1e-6; the filter damps the difference rather than growing it).
 L96_MESH_ATOL = 1e-4
-MESH_ROUNDS = 2  # timed calls after the first
+MESH_ROUNDS = 1  # timed calls after the first (one: the script's ~700 s budget)
 MESH_SYNC_STEPS = (5, 15)  # eager calls whose difference gives syncs per step
 MULTI_SLICES, MULTI_CHIPS = 2, 2  # the multislice mesh on four gloo ranks
 
@@ -4220,45 +4138,28 @@ def to_cpu(tree):
     return tree
 
 
-def sensor_network(np, n_sensors=None, steps=None, seed=None):
-    """examples/sensor_network.py's act-1 network (F, Q, hs [S, 2, 4],
-    rs [S, 2, 2], ys [S, T, 2]): with no arguments its own 8 sensors x 60
-    steps in its draw order (example lines 60-76, seed 1); else
-    `n_sensors` x `steps` of the same kind drawn in bulk from `seed`."""
-    dt = 0.5
-    f = np.kron(np.eye(2), np.array([[1.0, dt], [0.0, 1.0]]))
-    q = 0.02 * np.kron(np.eye(2), np.array([[dt**3 / 3, dt**2 / 2], [dt**2 / 2, dt]]))
-    lq = np.linalg.cholesky(q)
+def sensor_network_bulk(np, n_sensors, steps, seed):
+    """A network of examples/sensor_network.py's act-1 kind (F, Q, hs
+    [S, 2, 4], rs [S, 2, 2], ys [S, T, 2]), `n_sensors` x `steps` drawn in
+    bulk from `seed`.  The act-1 network itself is the example module's
+    (`examples.sensor_network.act_one_network`)."""
+    from gokalman_tpu_torch.examples.sensor_network import F, LQ, Q
+
     base = np.kron(np.eye(2), [[1.0, 0.0]])
     x = np.array([5.0, -0.2, -3.0, 0.3])
-    if n_sensors is None:
-        rng = np.random.default_rng(1)
-        n_sensors, steps = 8, 60
-        hs, rs = [], []
-        for _ in range(n_sensors):
-            hs.append(base + 0.2 * rng.standard_normal((2, 4)))
-            a = rng.standard_normal((2, 2))
-            rs.append(0.3 * (a @ a.T + 2 * np.eye(2)))
-        hs, rs = np.stack(hs), np.stack(rs)
-        ys = np.zeros((n_sensors, steps, 2))
-        for k in range(steps):
-            x = f @ x + lq @ rng.standard_normal(4)
-            for s in range(n_sensors):
-                ys[s, k] = hs[s] @ x + np.linalg.cholesky(rs[s]) @ rng.standard_normal(2)
-        return f, q, hs, rs, ys
     rng = np.random.default_rng(seed)
     hs = base + 0.2 * rng.standard_normal((n_sensors, 2, 4))
     a = rng.standard_normal((n_sensors, 2, 2))
     rs = 0.3 * (a @ a.transpose(0, 2, 1) + 2 * np.eye(2))
-    ws = rng.standard_normal((steps, 4)) @ lq.T
+    ws = rng.standard_normal((steps, 4)) @ LQ.T
     xs = np.empty((steps, 4))
     for k in range(steps):
-        x = f @ x + ws[k]
+        x = F @ x + ws[k]
         xs[k] = x
     vs = rng.standard_normal((n_sensors, steps, 2))
     ys = (np.einsum("spn,tn->stp", hs, xs)
           + np.einsum("spq,stq->stp", np.linalg.cholesky(rs), vs))
-    return f, q, hs, rs, ys
+    return F, Q, hs, rs, ys
 
 
 def mesh_inputs(gt, torch, device, world):
@@ -4292,8 +4193,10 @@ def mesh_inputs(gt, torch, device, world):
     pp["u"] = torch.rand((steps,), generator=gen, dtype=f64, device=device)
     pp["u_local"] = torch.rand((steps, world), generator=gen, dtype=f64, device=device)
     on_card = lambda arrays: [torch.as_tensor(a, dtype=f64, device=device) for a in arrays]
-    return dict(l96=pb, particle=pp, act1=on_card(sensor_network(np)),
-                network=on_card(sensor_network(np, MESH_SENSORS, MESH_SENSOR_STEPS, SEED)))
+    from gokalman_tpu_torch.examples import sensor_network as net
+
+    return dict(l96=pb, particle=pp, act1=on_card((net.F, net.Q, *net.act_one_network())),
+                network=on_card(sensor_network_bulk(np, MESH_SENSORS, MESH_SENSOR_STEPS, SEED)))
 
 
 def particle_fns(gt, torch, device, pp):
@@ -4495,12 +4398,10 @@ def phase_mesh_runs(gt, torch, device, card, sharded_world1):
     ref_pf = to_cpu(particle.run(particle.new(pp["x0"], pp["p0"], MESH_PARTICLES, z=pp["z0"]),
                                  torch.as_tensor(pp["ys"], device=device), prop, loglik,
                                  particle.Draws(pp["z"], pp["u"]))[1])
-    f, q, hs, rs, ys = inputs["act1"]
-    n_s, steps = ys.shape[:2]
-    r_big = torch.block_diag(*rs)
-    cmodel, cst = gt.vanilla.new(np.zeros(4), np.eye(4), f, None, hs.reshape(-1, 4),
-                                 gt.noise.noiseless(q, r_big), dtype=torch.float64)
-    central = gt.vanilla.run(cmodel, cst, ys.transpose(0, 1).reshape(steps, -1))[1].state.cpu()
+    from gokalman_tpu_torch.examples import sensor_network as net
+
+    n_s, steps = inputs["act1"][4].shape[:2]
+    central = net.central_kf(*net.act_one_network(), device).cpu()
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
                                 rank=0, world_size=1)
@@ -4595,6 +4496,97 @@ def phase_mesh_runs(gt, torch, device, card, sharded_world1):
     return sum(o["launches"] for o in outs)
 
 
+GRAFT_RANKS = 8  # dryrun_multichip's ranks: gloo ranks on the one card
+# The JAX function's tolerance of each pipeline against its unsharded run
+# (__graft_entry__.py:110-334; fused_mc in float32 ulps); the IEKF fleet's
+# against the float64 fleet is `graft_entry.IEKF_TOL`.
+GRAFT_TOLS = {"mc_chi_square": 1e-4, "fused_mc_ulps": 1.0, "enkf": 1e-5, "particle": 1e-6,
+              "multislice": 1e-4, "jpda": 1e-6, "pmb": 1e-6, "lmb": 1e-6, "fusion": 1e-4,
+              "time_scan": 1e-4}
+
+
+def phase_graft(gt, torch, device, card):
+    """[graft]: the port's driver entry points (`graft_entry`).  `entry()`
+    with no device (the flagship 6-state CKF Monte-Carlo + chi-square,
+    1,024 x 20 f32, its generator on the card): NEES and NIS finite and
+    [20]; then `dryrun_multichip(8)` as 8 gloo ranks on the one card, its
+    summary line, every pipeline's largest deviation over the ranks from
+    its unsharded run beside the JAX function's tolerance (the IEKF
+    fleet's from the float64 fleet beside `IEKF_TOL`), each rank's
+    start-up seconds, pipeline seconds and peak memory, and K1 launched by
+    pipeline 2 on every rank.  Returns those K1 launches."""
+    from gokalman_tpu_torch import graft_entry
+
+    t_phase = time.perf_counter()
+    fn, args = graft_entry.entry()
+    check(args[0].device.type == "cuda", f"entry() made its generator on {args[0].device}")
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    check(tuple(out.nees_means.shape) == (20,) and tuple(out.nis_means.shape) == (20,),
+          f"entry(): NEES {tuple(out.nees_means.shape)}, NIS {tuple(out.nis_means.shape)}")
+    check(all(bool(torch.isfinite(a).all()) for a in out), "entry(): non-finite output")
+    ms = cuda_ms(lambda: fn(*args), 3, lambda: None)[0]
+    log(f"[graft] entry() on {card}: NEES[19] {float(out.nees_means[-1]):.4f}, NIS[19] "
+        f"{float(out.nis_means[-1]):.4f}, finite, [20]; first call {first:.3f} s host clock, "
+        f"then {ms:.3f} ms per call (CUDA events, mean of 3)")
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(GRAFT_RANKS)
+    wall = time.perf_counter() - t0
+    ranks = dry["ranks"]
+    for name, tol in {**GRAFT_TOLS, "iekf": graft_entry.IEKF_TOL}.items():
+        worst = max(o["gaps"][name] for o in ranks)
+        check(worst <= tol if name == "fused_mc_ulps" else worst < tol,
+              f"[graft] pipeline {name}: {worst} from its unsharded run (tolerance {tol})")
+        log(f"[graft] dryrun pipeline {name}: largest deviation over the {len(ranks)} ranks "
+            f"{worst:.3g} (tolerance {tol:g}); seconds per rank "
+            f"{min(o['secs'].get(name.replace('_ulps', ''), 0.0) for o in ranks):.3f}-"
+            f"{max(o['secs'].get(name.replace('_ulps', ''), 0.0) for o in ranks):.3f}")
+    for rank, o in enumerate(ranks):
+        check(o["k1_launches"] > 0, f"[graft] K1 was not launched on rank {rank}")
+        log(f"[graft] rank {rank} on {card}: start-up {o['startup_s']:.2f} s (spawn to its first "
+            f"line), pipelines {o['rank_s']:.2f} s, peak memory {o['peak_bytes'] / 2**20:.1f} MiB "
+            f"(allocator), K1 launches {o['k1_launches']}")
+    log(f"[graft] dryrun_multichip({GRAFT_RANKS}) wall {wall:.1f} s host clock; phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return sum(o["k1_launches"] for o in ranks)
+
+
+EXAMPLE_ARGS = {"sensor_network": {"ranks": 1}}
+
+
+def phase_examples(gt, torch, device, card):
+    """[examples]: the twelve examples (`gokalman_tpu_torch.examples`) at
+    the scripts' own sizes on the card, each through its `main` with no
+    device given; sensor_network fuses act 1's 8 sensors in this process
+    (`ranks=1`: its 8-rank fusion is the dry run's pipeline 8 and
+    [mesh runs]' world 2).  Each asserts what its script asserts; a
+    failed claim fails the run.  Prints the claim rows each `main`
+    returns (value beside bound) and each example's seconds.  Returns
+    {name: seconds}."""
+    import importlib
+
+    from gokalman_tpu_torch.examples import NAMES
+
+    t_phase, secs = time.perf_counter(), {}
+    for name in NAMES:
+        mod = importlib.import_module(f"gokalman_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        try:
+            out = mod.main(**EXAMPLE_ARGS.get(name, {}))
+        except AssertionError as exc:
+            raise SmokeFailure(f"[examples] {name}: a claim failed: {exc!r}") from exc
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        for line in out["claims"].lines():
+            log(f"[examples] {name}: {line}")
+        log(f"[examples] {name}: {secs[name]:.1f} s host clock on {card}")
+    log(f"[examples] phase {time.perf_counter() - t_phase:.1f} s host clock on {card}; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return secs
+
+
 def kernel_entry(name, counts, max_err, ms, plain_ms, library_ms, bound_ms, bound_by,
                  **extra):
     return {"name": name, "route": "cuda", "source": SOURCES[name],
@@ -4654,6 +4646,9 @@ def run():
     # the 2 x 2 multislice mesh.
     timed("io", phase_io, gt, torch, device, card)
     counts["fused_mc"] += timed("mesh runs", phase_mesh_runs, gt, torch, device, card, sharded1)
+    # The driver entry points (K1 on every dry-run rank) and the examples.
+    counts["fused_mc"] += timed("graft", phase_graft, gt, torch, device, card)
+    timed("examples", phase_examples, gt, torch, device, card)
     log(f"[time] phases (s, host clock): {json.dumps(secs)}; whole script "
         f"{time.perf_counter() - t_run:.1f} s")
 
