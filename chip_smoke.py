@@ -1039,7 +1039,11 @@ def launch_profile(fn, cpu=True):
         fn()
         torch.cuda.synchronize()
     events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # The program's spans (`gk.*`) show on the device too, as annotations
+    # over the operations launched inside them: they are not kernels.
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("gk.")]
     calls = sum(1 for e in events if e.device_type == DeviceType.CPU
                 and e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                                "cuLaunchKernelEx")) if cpu else None

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiling
 from ._device import resolve_device
 
 
@@ -31,23 +32,24 @@ def van_loan(a, gamma, w, dt: float, check_nyquist: bool = True, *,
     Builds M = [[-A dt, G W Gᵀ dt], [0, Aᵀ dt]], exponentiates, and
     reads F = exp(A dt) and Q = F (F⁻¹ Q) from the blocks
     (reference: c2d.go:31-74).  `ok` is the Nyquist flag.  Tensors go
-    to `device`, else a's, else the card.
+    to `device`, else a's, else the card.  Span `model.van_loan`.
     """
-    a = torch.as_tensor(a, dtype=dtype, device=resolve_device(device, a))
-    gamma = torch.as_tensor(gamma, dtype=a.dtype, device=a.device)
-    w = torch.as_tensor(w, dtype=a.dtype, device=a.device)
-    n = a.shape[0]
+    with profiling.span("model.van_loan"):
+        a = torch.as_tensor(a, dtype=dtype, device=resolve_device(device, a))
+        gamma = torch.as_tensor(gamma, dtype=a.dtype, device=a.device)
+        w = torch.as_tensor(w, dtype=a.dtype, device=a.device)
+        n = a.shape[0]
 
-    gwg = gamma @ w @ gamma.T * dt
-    ap = a * dt
-    m = torch.cat([torch.cat([-ap, gwg], dim=1),
-                   torch.cat([torch.zeros_like(ap), ap.T], dim=1)], dim=0)
-    em = torch.linalg.matrix_exp(m)
-    # Top-right block is F^{-1} Q; bottom-right is F^T.
-    f = em[n:, n:].T
-    q = f @ em[:n, n:]
-    q = 0.5 * (q + q.T)
-    ok = nyquist_ok(a, dt) if check_nyquist else True
+        gwg = gamma @ w @ gamma.T * dt
+        ap = a * dt
+        m = torch.cat([torch.cat([-ap, gwg], dim=1),
+                       torch.cat([torch.zeros_like(ap), ap.T], dim=1)], dim=0)
+        em = torch.linalg.matrix_exp(m)
+        # Top-right block is F^{-1} Q; bottom-right is F^T.
+        f = em[n:, n:].T
+        q = f @ em[:n, n:]
+        q = 0.5 * (q + q.T)
+        ok = nyquist_ok(a, dt) if check_nyquist else True
     return f, q, ok
 
 

@@ -14,6 +14,10 @@ measurements [T, B, p]; the whole [B, M, ...] batch then advances in
 one step (`ops.bank.per_target`).  The IMM-PDAF (`step_pdaf` /
 `run_pdaf`) runs `pdaf.step` per mode against the same candidate frame
 and weighs the modes by each one's association evidence.
+
+`step`'s phases are `profiling.span`s: `imm.mix`, `imm.modes` (the
+mode-matched updates), `imm.posterior` (the mode probabilities and the
+`has` masking) and `imm.match`; `new` is `model.imm_new`.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
-from .. import linalg
+from .. import linalg, profiling
 from .._device import resolve_device
 from ..ops.bank import per_target, vmap_leaves
 from ..ops.scan import scan
@@ -127,11 +131,12 @@ def new(x0, p0, models, trans, mu0=None, *, dtype=None, device=None):
     row-stochastic transition matrix and optional initial mode
     probabilities (uniform by default); all modes share (x0, P0).
     Tensors take the modes' dtype and device unless given."""
-    if isinstance(models, (list, tuple)) and not isinstance(models, vanilla.Model):
-        models = stack_models(models)
-    device = resolve_device(device, models.f)
-    trans, state = _bank_init(trans, x0, p0, mu0, int(models.f.shape[0]),
-                              dtype or models.f.dtype, device)
+    with profiling.span("model.imm_new"):
+        if isinstance(models, (list, tuple)) and not isinstance(models, vanilla.Model):
+            models = stack_models(models)
+        device = resolve_device(device, models.f)
+        trans, state = _bank_init(trans, x0, p0, mu0, int(models.f.shape[0]),
+                                  dtype or models.f.dtype, device)
     return Model(models, trans), state
 
 
@@ -149,7 +154,8 @@ def step(model: Model, state: State, measurement, control=None, has=None):
     `has` (0-d bool) masks the update: a masked step keeps the mixed
     per-mode time updates and the Markov-chain priors."""
     eps = 1e-30
-    c, xs_mix, ps_mix = _mix(state, model.trans, eps)
+    with profiling.span("imm.mix"):
+        c, xs_mix, ps_mix = _mix(state, model.trans, eps)
 
     def mode_step(mode_model, x, p):
         st, est = vanilla.step(mode_model, vanilla.State(x, p, state.k), measurement, control)
@@ -157,18 +163,22 @@ def step(model: Model, state: State, measurement, control=None, has=None):
         return st.x, st.p, est.innovation, est.pred_covariance, _gaussian_loglik(
             est.innovation, s)
 
-    xs_new, ps_new, innov, ps_pred, lls = vmap_leaves(mode_step, model.modes, xs_mix, ps_mix)
-    mu, log_norm = _mode_posterior(c, lls, eps)
-    if has is not None:
-        # The mean prediction from the mixed prior, not x⁺ − K ν: a
-        # masked step must not depend on the measurement's value.
-        xs_pred = vmap_leaves(lambda mm, x: _x_pred(mm, x, control), model.modes, xs_mix)
-        xs_new = torch.where(has, xs_new, xs_pred)
-        ps_new = torch.where(has, ps_new, ps_pred)
-        mu = torch.where(has, mu, c)
-        log_norm = torch.where(has, log_norm, torch.zeros_like(log_norm))
-        innov = torch.where(has, innov, torch.zeros_like(innov))
-    mean, cov = _moment_match(xs_new, ps_new, mu)
+    with profiling.span("imm.modes"):
+        xs_new, ps_new, innov, ps_pred, lls = vmap_leaves(mode_step, model.modes, xs_mix,
+                                                          ps_mix)
+    with profiling.span("imm.posterior"):
+        mu, log_norm = _mode_posterior(c, lls, eps)
+        if has is not None:
+            # The mean prediction from the mixed prior, not x⁺ − K ν: a
+            # masked step must not depend on the measurement's value.
+            xs_pred = vmap_leaves(lambda mm, x: _x_pred(mm, x, control), model.modes, xs_mix)
+            xs_new = torch.where(has, xs_new, xs_pred)
+            ps_new = torch.where(has, ps_new, ps_pred)
+            mu = torch.where(has, mu, c)
+            log_norm = torch.where(has, log_norm, torch.zeros_like(log_norm))
+            innov = torch.where(has, innov, torch.zeros_like(innov))
+    with profiling.span("imm.match"):
+        mean, cov = _moment_match(xs_new, ps_new, mu)
     est = Estimate(mean, cov, mu, innov, log_norm, xs_new, ps_new)
     return State(xs_new, ps_new, mu, state.k + 1), est
 

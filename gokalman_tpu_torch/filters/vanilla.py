@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .. import linalg
+from .. import linalg, profiling
 from .._device import resolve_device
 from ..noise import Noise, measurement_sample, process_sample
 from ..ops.bank import per_target
@@ -79,22 +79,23 @@ def new(x0, p0, f, g, h, noise: Noise, *, dtype=None, device=None):
     device (or `dtype`/`device` when given): torch does not promote
     mixed float32/float64 products the way JAX does.  Host arrays with
     no `device` go to the card, or to the device of the first tensor
-    among x0, p0, f, h.
+    among x0, p0, f, h.  Span `model.vanilla_new`.
     """
-    device = resolve_device(device, x0, p0, f, h)
-    x0 = torch.as_tensor(x0, dtype=dtype, device=device)
-    dtype, device = x0.dtype, x0.device
-    noise = Noise(*(torch.as_tensor(a, dtype=dtype, device=device)
-                    for a in noise))
-    p0 = torch.as_tensor(p0, dtype=dtype, device=device)
-    f = torch.as_tensor(f, dtype=dtype, device=device)
-    h = torch.as_tensor(h, dtype=dtype, device=device)
-    g = (None if g is None or linalg.is_nil(g)
-         else torch.as_tensor(g, dtype=dtype, device=device))
-    linalg.check_dims((x0.shape[0], 1), p0.shape, "x0", "P0", "rows2cols")
-    linalg.check_dims(f.shape, p0.shape, "F", "P0", "rows2cols")
-    linalg.check_dims(h.shape, (x0.shape[0], 1), "H", "x0", "cols2rows")
-    k = torch.zeros((), dtype=torch.int32, device=device)
+    with profiling.span("model.vanilla_new"):
+        device = resolve_device(device, x0, p0, f, h)
+        x0 = torch.as_tensor(x0, dtype=dtype, device=device)
+        dtype, device = x0.dtype, x0.device
+        noise = Noise(*(torch.as_tensor(a, dtype=dtype, device=device)
+                        for a in noise))
+        p0 = torch.as_tensor(p0, dtype=dtype, device=device)
+        f = torch.as_tensor(f, dtype=dtype, device=device)
+        h = torch.as_tensor(h, dtype=dtype, device=device)
+        g = (None if g is None or linalg.is_nil(g)
+             else torch.as_tensor(g, dtype=dtype, device=device))
+        linalg.check_dims((x0.shape[0], 1), p0.shape, "x0", "P0", "rows2cols")
+        linalg.check_dims(f.shape, p0.shape, "F", "P0", "rows2cols")
+        linalg.check_dims(h.shape, (x0.shape[0], 1), "H", "x0", "cols2rows")
+        k = torch.zeros((), dtype=torch.int32, device=device)
     return Model(f, g, h, noise), State(x0, p0, k)
 
 

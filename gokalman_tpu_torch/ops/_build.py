@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+from .. import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,35 +50,37 @@ def _nvcc() -> str:
 
 
 def load(source: str, defines: Dict[str, int]) -> ctypes.CDLL:
-    """Compile (if needed) and load `csrc/<source>` with `-D` defines."""
-    src = CSRC / source
-    flags = list(NVCC_FLAGS) + [f"-D{k}={v}" for k, v in sorted(defines.items())]
-    digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
-    digest.update("\0".join(flags).encode())
-    tag = digest.hexdigest()[:16]
-    if tag in _loaded:
-        return _loaded[tag]
-    so = BUILD_DIR / f"{src.stem}_{tag}.so"
-    log = so.with_suffix(".log")
-    seconds = 0.0
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) on {source} "
-                f"{defines}:\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    _loaded[tag] = lib
-    records.append({"source": source, "defines": dict(defines),
-                    "path": str(so), "seconds": seconds,
-                    "ptxas": log.read_text() if log.exists() else ""})
-    return lib
+    """Compile (if needed) and load `csrc/<source>` with `-D` defines
+    (span `build.load`)."""
+    with profiling.span("build.load"):
+        src = CSRC / source
+        flags = list(NVCC_FLAGS) + [f"-D{k}={v}" for k, v in sorted(defines.items())]
+        digest = hashlib.sha256(src.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        digest.update("\0".join(flags).encode())
+        tag = digest.hexdigest()[:16]
+        if tag in _loaded:
+            return _loaded[tag]
+        so = BUILD_DIR / f"{src.stem}_{tag}.so"
+        log = so.with_suffix(".log")
+        seconds = 0.0
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            t0 = time.perf_counter()
+            proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log.write_text(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}) on {source} "
+                    f"{defines}:\n{proc.stderr[-4000:]}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        _loaded[tag] = lib
+        records.append({"source": source, "defines": dict(defines),
+                        "path": str(so), "seconds": seconds,
+                        "ptxas": log.read_text() if log.exists() else ""})
+        return lib

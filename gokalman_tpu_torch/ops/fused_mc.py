@@ -14,6 +14,12 @@ schedule, control increments) comes from `precompute_path`;
 `MonteCarloChiSquare` holds it as buffers, so repeated experiments
 (new seeds, same model) compute it once.
 
+Spans (`profiling.span`): `fused_mc.forward` (one experiment),
+`fused_mc.launch` (`_partials_cuda`: K1's checks, load, output buffer and
+launch, the host's work before K1 can start), `fused_mc.pool`, and at
+set-up `fused_mc.path` (`precompute_path`) and `fused_mc.fixed_host`
+(the fixed array's copy to the host, a sync).
+
 Dispatch.  Each wrapper launches its kernel when its tensors lie on a
 CUDA device, and raises if the build or the launch fails; it takes the
 plain PyTorch version only for tensors on the CPU.  `launches` counts
@@ -40,7 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import linalg
+from .. import linalg, profiling
 from .._device import resolve_device
 from ..filters import vanilla
 from . import philox
@@ -114,12 +120,13 @@ def precompute_path(model: vanilla.Model, state0: vanilla.State, steps: int,
     each [T, ...] (pallas_mc.py:precompute_path and its `_compute_path`).
     `cov_path="sqrt"` takes the factored recurrence for badly
     conditioned f32 models (ops.ensemble._covariance_path_sqrt)."""
-    (k_path, s_inv, p_inv), hs_m, lrs = covariance_path(
-        model, state0.p, steps, hs, rs, meas_masks, cov_path)
-    gus = None
-    if controls is not None and model.g is not None:
-        u = torch.as_tensor(controls, dtype=model.f.dtype, device=model.f.device)
-        gus = u @ model.g.T  # [T, m] @ [m, n]
+    with profiling.span("fused_mc.path"):
+        (k_path, s_inv, p_inv), hs_m, lrs = covariance_path(
+            model, state0.p, steps, hs, rs, meas_masks, cov_path)
+        gus = None
+        if controls is not None and model.g is not None:
+            u = torch.as_tensor(controls, dtype=model.f.dtype, device=model.f.device)
+            gus = u @ model.g.T  # [T, m] @ [m, n]
     return k_path, s_inv, p_inv, hs_m, lrs, gus
 
 
@@ -201,10 +208,11 @@ def pool(partials: torch.Tensor, samples: int, group=None) -> ChiSquareResult:
     float64).  With a torch.distributed `group`, each rank passes its
     own partials, the moments are pooled over the ranks too
     (ensemble.pool_moments), and every rank gets the group's result."""
-    sums, m2 = _moments(partials, samples)
-    if group is not None:
-        samples, sums, m2 = pool_moments(samples, sums, m2, group)
-    return _result(sums, m2, samples)
+    with profiling.span("fused_mc.pool"):
+        sums, m2 = _moments(partials, samples)
+        if group is not None:
+            samples, sums, m2 = pool_moments(samples, sums, m2, group)
+        return _result(sums, m2, samples)
 
 
 @linalg.highp
@@ -343,7 +351,8 @@ class MonteCarloChiSquare(nn.Module):
         self.register_buffer("fixed", fixed)
         # The kernel takes the fixed array by value as a launch
         # parameter, so keep a host copy (read once, here).
-        self._fixed_host = fixed.detach().cpu().numpy()
+        with profiling.span("fused_mc.fixed_host"):
+            self._fixed_host = fixed.detach().cpu().numpy()
 
     def _check(self, samples: int, member_offset: int):
         if not 2 <= samples < 2**31:
@@ -360,7 +369,8 @@ class MonteCarloChiSquare(nn.Module):
         args = (self.n, self.p, self.tv, self.ctrl, samples, seed, fast_rng,
                 member_offset)
         if self.rows.is_cuda:
-            return _partials_cuda(self.rows, self._fixed_host, *args)
+            with profiling.span("fused_mc.launch"):
+                return _partials_cuda(self.rows, self._fixed_host, *args)
         if self.rows.device.type == "cpu":
             return _partials_ref(self.rows, self.fixed, *args)
         raise ValueError(f"no fused_mc path for device {self.rows.device}")
@@ -377,8 +387,9 @@ class MonteCarloChiSquare(nn.Module):
 
     def forward(self, samples: int, seed: int, fast_rng: bool = False,
                 member_offset: int = 0, group=None) -> ChiSquareResult:
-        return pool(self.partials(samples, seed, fast_rng, member_offset),
-                    samples, group)
+        with profiling.span("fused_mc.forward"):
+            return pool(self.partials(samples, seed, fast_rng, member_offset),
+                        samples, group)
 
     def reference(self, samples: int, seed: int, fast_rng: bool = False,
                   member_offset: int = 0, z0=None, wv=None,

@@ -9,6 +9,13 @@ kernels costs their device time rather than their launches.
 `associative_scan` follows JAX's odd/even recursion, so the combine
 tree, and with it the rounding, matches the JAX one: O(log T) levels,
 each one batched call of `fn` over [k, ...] slices.
+
+`counts` holds always-on counters, each moved once per call: graphs
+captured, graph replays, and plain-loop steps whose tensors were on a
+card (a scan that ran eager there: `graph=False`, or a gradient
+wanted).  Each phase of a scan is a `profiling.span`: `scan.warmup`,
+`scan.capture` and `scan.replay` of a graph scan, `scan.plain` around
+the plain loop.
 """
 
 from __future__ import annotations
@@ -18,7 +25,18 @@ from typing import Callable, Sequence, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from .. import profiling
+
 Elems = Tuple[torch.Tensor, ...]
+
+#: Since the last `reset_counts()`: graphs captured, graph replays, and
+#: plain-loop steps on a card.
+counts = {"captures": 0, "replays": 0, "plain_steps": 0}
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
 
 
 def scan(step: Callable, carry, xs, length: int = None, *, reverse: bool = False,
@@ -74,16 +92,19 @@ def scan(step: Callable, carry, xs, length: int = None, *, reverse: bool = False
         out = _graph_scan(step, carry, flat_xs, xs_spec, steps, leaves[0].device)
         if out is not None:
             return out
+    if _on_card(leaves):
+        counts["plain_steps"] += steps
     ys = []
-    for t in range(steps):
-        x_t = pytree.tree_unflatten(
-            [a[t] if isinstance(a, torch.Tensor) else a for a in flat_xs], xs_spec)
-        carry, y = step(carry, x_t)
-        ys.append(y)
-    flat_ys = [pytree.tree_flatten(y)[0] for y in ys]
-    y_spec = pytree.tree_flatten(ys[0])[1]
-    stacked = [torch.stack(col) if isinstance(col[0], torch.Tensor) else col[0]
-               for col in zip(*flat_ys)]
+    with profiling.span("scan.plain"):
+        for t in range(steps):
+            x_t = pytree.tree_unflatten(
+                [a[t] if isinstance(a, torch.Tensor) else a for a in flat_xs], xs_spec)
+            carry, y = step(carry, x_t)
+            ys.append(y)
+        flat_ys = [pytree.tree_flatten(y)[0] for y in ys]
+        y_spec = pytree.tree_flatten(ys[0])[1]
+        stacked = [torch.stack(col) if isinstance(col[0], torch.Tensor) else col[0]
+                   for col in zip(*flat_ys)]
     return carry, pytree.tree_unflatten(stacked, y_spec)
 
 
@@ -137,7 +158,7 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
 
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
+    with profiling.span("scan.warmup"), torch.cuda.stream(side):
         new_c, (y_w, y_spec) = body()
     torch.cuda.current_stream(device).wait_stream(side)
     if needs_autograd((new_c, y_w)):
@@ -155,7 +176,7 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
     # `torch.cuda.graph` does without its gc.collect() and empty_cache(),
     # which would cost every call.
     cuda_graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(side):
+    with profiling.span("scan.capture"), torch.cuda.stream(side):
         cuda_graph.capture_begin()
         try:
             new_c, (ys, _) = body()
@@ -175,9 +196,12 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
             counter.add_(1)
         finally:
             cuda_graph.capture_end()
+    counts["captures"] += 1
     torch.cuda.current_stream(device).wait_stream(side)
-    for _ in range(steps):
-        cuda_graph.replay()
+    with profiling.span("scan.replay"):
+        for _ in range(steps):
+            cuda_graph.replay()
+    counts["replays"] += steps
     return pytree.tree_unflatten(static_c, c_spec), pytree.tree_unflatten(out, y_spec)
 
 

@@ -249,8 +249,8 @@ def test_profiling_helpers_on_the_cpu(tmp_path):
                                   warmup=2, iters=3)
     assert len(calls) == 5 and best >= 0.0 and torch.equal(out, 2 * torch.ones(3))
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("od_step"):
+        with profiling.span("od_step"):
             torch.ones(4) @ torch.ones(4)
     traces = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
-    assert traces and "od_step" in open(os.path.join(tmp_path, traces[0])).read()
+    assert traces and "gk.od_step" in open(os.path.join(tmp_path, traces[0])).read()
     profiling.backend_watchdog(60.0, "test")  # returns: no card here, or a live one
