@@ -13,6 +13,12 @@ runners (`run_ukf_od`, `run_enkf_od`) push their sigma points or
 members through the flow and the station as one batch.
 `consider_bias_analysis` reads a hybrid run's recorded trace into the
 Schmidt filter's consider analysis.
+
+`run_srif_od` also runs a catalog: K objects, each on its own pass
+schedule, in one scan.  Its host work before and after the scan are the
+spans `od.setup` and `od.outputs`; `counts` holds its always-on
+counters, moved once a call: calls (`runs`) and the (object, step) pairs
+they filtered (`object_steps`).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from . import c2d, linalg
+from . import c2d, linalg, profiling
 from ._device import resolve_device
 from .dynamics import constants as c
 from .dynamics import gravity, integrators
@@ -34,6 +40,16 @@ from .filters import batch as batch_ls
 from .filters import hybrid, schmidt, srif
 from .noise import Noise
 from .ops.scan import scan
+
+#: Since the last `reset_counts()`: `run_srif_od` calls, and the
+#: (object, time-step) pairs they filtered (K x T a call, 1 x T for one
+#: spacecraft).
+counts = {"runs": 0, "object_steps": 0}
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
 
 
 class ODResult(NamedTuple):
@@ -96,7 +112,7 @@ def _setup(x0_ref, p0, meas, stations_list, dt, t0, device) -> _Setup:
     """The runners' common set-up: x0 as a tensor on the run's device
     (`device`, else that of x0 / p0 / the observations, else the card),
     the measurements and stacked stations in its dtype there, and the
-    step times t0 + dt·k, k = 1..T."""
+    step times t0 + dt·k, k = 1..T (T the last axis of `has_meas`)."""
     device = resolve_device(device, x0_ref, p0, meas.obs)
     x0 = torch.as_tensor(x0_ref if isinstance(x0_ref, torch.Tensor) else np.asarray(x0_ref),
                          device=device)
@@ -109,7 +125,7 @@ def _setup(x0_ref, p0, meas, stations_list, dt, t0, device) -> _Setup:
         torch.as_tensor(meas.station_idx, device=device))
     stations = st.Station(*(f.to(dtype=dtype, device=device)
                             for f in st.stack_stations(stations_list)))
-    steps = meas.obs.shape[0]
+    steps = meas.has_meas.shape[-1]
     times = t0 + dt * torch.arange(1, steps + 1, dtype=dtype, device=device)
     return _Setup(device, dtype, x0, meas, stations, times)
 
@@ -438,6 +454,62 @@ def run_consider_od(
                     truths[0] if truths else None)
 
 
+def _srif_body(s: _Setup, model, phi_flow, theta0, self_consistent: bool):
+    """`run_srif_od`'s step on one spacecraft: carry (x_ref, state), or
+    (x_truth, x_ref, state) with a co-propagated truth; xs (observation,
+    station index, has_meas, time)."""
+
+    def body(carry, xs):
+        if self_consistent:
+            x_truth, x_ref, sstate = carry
+        else:
+            x_ref, sstate = carry
+        real_obs, idx, has, t = xs
+        theta = theta0 + c.EARTH_ROTATION_RATE * t
+        if self_consistent:
+            # Truth and reference propagated and observed as one batch:
+            # identical arithmetic for the pair.
+            pair_new, stms = integrators.x_and_jac(phi_flow, torch.stack([x_truth, x_ref]))
+            x_truth, x_ref = pair_new[0], pair_new[1]
+            stm = stms[1]
+            obs_pair, ht_pair = _computed_obs(s.stations, pair_new, theta, idx, has)
+            real_obs = obs_pair[0]
+            comp_obs, htilde = obs_pair[1], ht_pair[1]
+        else:
+            x_ref, stm = integrators.x_and_jac(phi_flow, x_ref)
+            comp_obs, htilde = _computed_obs(s.stations, x_ref, theta, idx, has)
+        sstate, est = srif.step(model, sstate, stm, htilde, real_obs, comp_obs, has)
+        dev_x = est.state
+        out = (x_ref + dev_x, dev_x, est.covariance, est.obs_dev, x_ref, est)
+        if self_consistent:
+            return (x_truth, x_ref, sstate), out + (x_truth,)
+        return (x_ref, sstate), out
+
+    return body
+
+
+def _per_object(x0_ref, meas: MeasurementSet) -> bool:
+    """Whether `meas` is a per-object schedule (every leaf [K, T, ...])
+    rather than a shared one ([T, ...]); a ValueError, before anything is
+    made on a device, where a leaf's leading axes are not (K, T) or
+    `x0_ref` is not [K, 6]."""
+    shapes = {name: tuple(np.shape(a)) for name, a in meas._asdict().items()
+              if a is not None}
+    shared = {"obs": 2, "htildes": 3, "has_meas": 1, "station_idx": 1}
+    if all(len(shape) == shared[name] for name, shape in shapes.items()):
+        return False
+    lead = shapes["has_meas"]
+    if len(lead) != 2 or any(len(shape) != shared[name] + 1 or shape[:2] != lead
+                             for name, shape in shapes.items()):
+        raise ValueError(f"a per-object schedule needs every MeasurementSet leaf "
+                         f"[K, T, ...] with has_meas [K, T], got {shapes}")
+    x_shape = tuple(np.shape(x0_ref))
+    if x_shape != (lead[0], 6):
+        raise ValueError(f"a schedule of {lead[0]} objects needs x0_ref "
+                         f"[{lead[0]}, 6], got {list(x_shape)}")
+    return True
+
+
 @linalg.highp
 def run_srif_od(
     x0_ref,
@@ -468,76 +540,73 @@ def run_srif_od(
     batch) generates the observations in the step from a co-propagated
     truth, as in `run_hybrid_od`.
 
-    `x0_ref` of shape [K, 6] runs K spacecraft on the same measurement
-    schedule at once (the JAX package vmaps the whole runner): the step
-    runs under `torch.func.vmap` over K, inside the one CUDA graph, and
-    every output gets a leading K axis ([K, T, ...]).  `device` and
-    `graph` as in `run_hybrid_od`.
+    `x0_ref` of shape [K, 6] runs K spacecraft at once (the JAX package
+    vmaps the whole runner): the step runs under `torch.func.vmap` over
+    K, inside the one CUDA graph, and every output gets a leading K axis
+    ([K, T, ...]).  With `meas` leaves of [T, ...] the K spacecraft share
+    one measurement schedule.  A catalog gives each object its own: every
+    leaf of `meas` [K, T, ...] (object-major, as the outputs: obs
+    [K, T, 2], station_idx and has_meas [K, T], htildes [K, T, 2, 6] or
+    None), object k's row k.  The step then reads row t of every
+    object's schedule, while the step times and the stations stay
+    shared; `has_meas` of the result is the [K, T] schedule.  A schedule
+    with an object axis needs `x0_ref` [K, 6] of the same K, else a
+    ValueError before any device work.  `device` and `graph` as in
+    `run_hybrid_od`.
     """
-    s = _setup(x0_ref, p0, meas, stations_list, dt, t0, device)
-    dtype, dev, meas = s.dtype, s.device, s.meas
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
-    x0_ref = s.x0
-    eom = functools.partial(gravity.eom, degree=degree)
-    phi_flow = integrators.flow(eom, dt, method, substeps)
-    noise = _noise(noise, s)
+    per_object = _per_object(x0_ref, meas)
+    with profiling.span("od.setup"):
+        s = _setup(x0_ref, p0, meas, stations_list, dt, t0, device)
+        dtype, dev, meas = s.dtype, s.device, s.meas
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+        x0_ref = s.x0
+        eom = functools.partial(gravity.eom, degree=degree)
+        phi_flow = integrators.flow(eom, dt, method, substeps)
+        noise = _noise(noise, s)
 
-    gamma = None
-    if snc_q is not None:
-        snc_q = as_t(snc_q)
-        if snc_q.shape != (3, 3):
-            raise ValueError("snc_q must be the 3x3 acceleration PSD")
-        noise = noise._replace(q=snc_q)
-        gamma = snc_gamma(dt, dtype, dev)
-    model, sstate0, _ = srif.new(x0_ref.new_zeros(6), as_t(p0), 2, non_tri_r, noise,
-                                 gamma=gamma)
-    self_consistent = truth0 is not None
+        gamma = None
+        if snc_q is not None:
+            snc_q = as_t(snc_q)
+            if snc_q.shape != (3, 3):
+                raise ValueError("snc_q must be the 3x3 acceleration PSD")
+            noise = noise._replace(q=snc_q)
+            gamma = snc_gamma(dt, dtype, dev)
+        model, sstate0, _ = srif.new(x0_ref.new_zeros(6), as_t(p0), 2, non_tri_r, noise,
+                                     gamma=gamma)
+        self_consistent = truth0 is not None
+        body = _srif_body(s, model, phi_flow, theta0, self_consistent)
 
-    def body(carry, xs):
-        if self_consistent:
-            x_truth, x_ref, sstate = carry
-        else:
-            x_ref, sstate = carry
-        real_obs, idx, has, t = xs
-        theta = theta0 + c.EARTH_ROTATION_RATE * t
-        if self_consistent:
-            # Truth and reference propagated and observed as one batch:
-            # identical arithmetic for the pair.
-            pair_new, stms = integrators.x_and_jac(phi_flow, torch.stack([x_truth, x_ref]))
-            x_truth, x_ref = pair_new[0], pair_new[1]
-            stm = stms[1]
-            obs_pair, ht_pair = _computed_obs(s.stations, pair_new, theta, idx, has)
-            real_obs = obs_pair[0]
-            comp_obs, htilde = obs_pair[1], ht_pair[1]
-        else:
-            x_ref, stm = integrators.x_and_jac(phi_flow, x_ref)
-            comp_obs, htilde = _computed_obs(s.stations, x_ref, theta, idx, has)
-        sstate, est = srif.step(model, sstate, stm, htilde, real_obs, comp_obs, has)
-        dev_x = est.state
-        out = (x_ref + dev_x, dev_x, est.covariance, est.obs_dev, x_ref, est)
-        if self_consistent:
-            return (x_truth, x_ref, sstate), out + (x_truth,)
-        return (x_ref, sstate), out
-
-    xs = (meas.obs, meas.station_idx, meas.has_meas, s.times)
-    truth = as_t(truth0) if self_consistent else None
-    step, has_meas = body, meas.has_meas
-    if x0_ref.dim() == 2:
-        # K spacecraft: every carry leaf gets the K axis, and the step is
-        # vmapped over it with the schedule shared.
-        grow = lambda a: a.expand((x0_ref.shape[0],) + a.shape).clone()
-        sstate0 = srif.State(*map(grow, sstate0))
-        if self_consistent and truth.dim() == 1:
-            truth = grow(truth)
-        step = torch.func.vmap(body, in_dims=(0, None))
-        has_meas = has_meas.expand(x0_ref.shape[0], -1)
-    carry0 = (x0_ref, sstate0) if truth is None else (truth, x0_ref, sstate0)
+        xs = (meas.obs, meas.station_idx, meas.has_meas, s.times)
+        truth = as_t(truth0) if self_consistent else None
+        step, has_meas = body, meas.has_meas
+        if x0_ref.dim() == 2:
+            # K spacecraft: every carry leaf gets the K axis, a shared
+            # schedule is read by every object, and the step is vmapped
+            # over K with row t of each object's schedule staged
+            # time-major ([T, K, ...]).
+            k = x0_ref.shape[0]
+            grow = lambda a: a.expand((k,) + a.shape).clone()
+            sstate0 = srif.State(*map(grow, sstate0))
+            if self_consistent and truth.dim() == 1:
+                truth = grow(truth)
+            if not per_object:
+                has_meas = has_meas.expand(k, -1)
+                meas = MeasurementSet(meas.obs.expand((k,) + meas.obs.shape), None, has_meas,
+                                      meas.station_idx.expand(k, -1))
+            rows = lambda a: a.transpose(0, 1).contiguous()
+            xs = (rows(meas.obs), rows(meas.station_idx), rows(meas.has_meas), s.times)
+            step = torch.func.vmap(body, in_dims=(0, (0, 0, 0, None)))
+        carry0 = (x0_ref, sstate0) if truth is None else (truth, x0_ref, sstate0)
     _, ys = scan(step, carry0, xs, graph=graph)
-    if x0_ref.dim() == 2:
-        ys = pytree.tree_map(lambda a: a.movedim(1, 0), ys)
-    full, dev_x, cov, innov, refs, ests, *truths = ys
-    return ODResult(full, dev_x, cov, innov, refs, has_meas, ests, None,
-                    truths[0] if truths else None)
+    with profiling.span("od.outputs"):
+        if x0_ref.dim() == 2:
+            ys = pytree.tree_map(lambda a: a.movedim(1, 0), ys)
+        full, dev_x, cov, innov, refs, ests, *truths = ys
+        result = ODResult(full, dev_x, cov, innov, refs, has_meas, ests, None,
+                          truths[0] if truths else None)
+    counts["runs"] += 1
+    counts["object_steps"] += full[..., 0].numel()
+    return result
 
 
 def _station_obs(stations: st.Station, idx):
