@@ -150,11 +150,13 @@ REPLACES = {
     "fused_mc": "gokalman_tpu/ops/pallas_mc.py:596",
     "sample_normals": "gokalman_tpu/ops/pallas_mc.py:164",
     "fused_imm": "none: beyond the TPU set (the JAX package leaves the IMM step to XLA)",
+    "fused_od": "none: beyond the TPU set (the JAX package leaves the OD step to XLA)",
 }
 SOURCES = {
     "fused_mc": "gokalman_tpu_torch/csrc/fused_mc.cu",
     "sample_normals": "gokalman_tpu_torch/csrc/sample_normals.cu",
     "fused_imm": "gokalman_tpu_torch/csrc/fused_imm.cu",
+    "fused_od": "gokalman_tpu_torch/csrc/fused_od.cu",
 }
 # K1 specialisations built and checked: (n, p, tv, ctrl).  The main
 # path's cv6, the jerk-car's tv + control schedule, and the largest
@@ -2779,6 +2781,130 @@ def phase_imm_fused(gt, torch, device, card):
                 launches=fused_imm.launches["fused_imm"] - launches)
 
 
+OD_FUSED_OBJECTS, OD_FUSED_STEPS = 1_024, 5_120  # the od_arc.srif cell's request
+OD_FUSED_ROUNDS = 5  # timed calls after a warm-up
+
+
+def phase_od_fused(gt, torch, device, card):
+    """[od_fused]: the fused SRIF orbit-determination kernel
+    (csrc/fused_od.cu) on the od_arc.srif cell's request, 1,024 objects of
+    h100_bench/reference/od.scene x 5,120 steps, f64 with SNC: ptxas's
+    registers and spills, one call's launches (one, ops/scan.counts
+    unmoved) and kernels (torch.profiler), the kernel's device time
+    (torch.profiler, three calls) beside its bounds (h100_bench/work/od.py:
+    the larger of its FP64 operations and its 361 bytes an object-step; and
+    every output written, 1,392 bytes an object-step, over the card's
+    bandwidth), `run_srif_od` per call (CUDA events, median of
+    OD_FUSED_ROUNDS), the scan path's CUDA-graph replay of the same call
+    (`fused_od.takes` patched to refuse; one call, capture included, host
+    clock) with the widest gap of every field from it over the field's
+    max-abs, and the clock64 split per step of lane 0 of each warp of
+    block 0 (the diagnostic build, `ops.fused_od.CLOCKS`): RK4, Φ⁻¹,
+    geometry, time update, measurement update, read-outs, stores, and
+    each warp's wait.  Returns the numbers of the kernels line."""
+    from gokalman_tpu_torch.dynamics import stations
+    from gokalman_tpu_torch.dynamics.propagate import MeasurementSet
+    from gokalman_tpu_torch.ops import _build, fused_od, scan
+    from h100_bench.reference import od as ref_od
+    from h100_bench.work import od as od_work
+
+    t_phase = time.perf_counter()
+    k, steps = OD_FUSED_OBJECTS, OD_FUSED_STEPS
+    cfg = json.loads(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "h100_bench",
+                                       "configs", "od_arc.json")).read())
+    sc = ref_od.scene(cfg, ref_od.walker_slots(cfg, k), steps, SEED, device)
+    f64 = torch.float64
+    sts = [stations.new_station(lat, lon, alt, cfg["elevation_mask_deg"], device=device)
+           for lat, lon, alt in cfg["stations"]]
+    nz = gt.noise.noiseless(torch.zeros(3, 3, dtype=f64, device=device),
+                            torch.diag(torch.tensor(cfg["r"], dtype=f64, device=device)))
+    meas = MeasurementSet(sc["obs"], None, sc["has_meas"], sc["station_idx"])
+
+    def call():
+        return gt.od.run_srif_od(sc["x0_ref"], torch.diag(torch.tensor(cfg["p0"], dtype=f64)),
+                                 nz, meas, cfg["dt"], theta0=sc["theta0"], stations_list=sts,
+                                 snc_q=cfg["snc_sigma"] ** 2 * torch.eye(3, dtype=f64))
+
+    fused_od.load()
+    rec = next(r for r in _build.records if r["source"] == fused_od.SOURCE
+               and not r["defines"]["FUSED_OD_CLOCKS"])
+    ptxas = " | ".join(ln.strip() for ln in rec["ptxas"].splitlines()
+                       if "registers" in ln or "spill" in ln)
+    counts = dict(scan.counts)
+    fused_od.reset_launches()
+    res = call()
+    torch.cuda.synchronize()
+    launches = fused_od.launches["fused_od"]  # the main path's call alone
+    check(launches == 1 and scan.counts == counts,
+          "[od_fused] run_srif_od took another path than one launch of the kernel")
+    check(bool(torch.isfinite(res.est_states).all() & torch.isfinite(res.covariances).all()),
+          "[od_fused] non-finite estimates")
+    times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(OD_FUSED_ROUNDS))
+    call_ms = times[len(times) // 2]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    hits = [e for e in events if "fused_srif_od" in e.key]
+    device_ms = (sum(e.device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+                 if hits else None)
+    kernels_a_call = sum(e.count for e in events if not e.key.startswith(("Memcpy", "Memset")))
+    kernels_a_call /= 3
+    flops, nbytes = od_work.run_work(k, steps, 6, 2, 3, len(sts), 4)
+    bound_ms = od_work.bound_s(k, steps, 6, 2, 3, len(sts), 4) * 1e3
+    by_bytes = nbytes / od_work.PEAK_BYTES >= flops / od_work.PEAK_FP64
+    bound_by = "bytes" if by_bytes else "operations"
+    all_bytes = k * steps * (od_work.bytes_read(2) + 8 * sum(
+        math.prod(shape) for shape in fused_od.FIELDS.values()))
+    all_ms = all_bytes / od_work.PEAK_BYTES * 1e3
+    # The scan path's graph replay of the same call, and the fused fields' gaps.
+    takes = fused_od.takes
+    fused_od.takes = lambda *args, **kwargs: False
+    try:
+        t0 = time.perf_counter()
+        plain = call()
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fused_od.takes = takes
+    pick = lambda r: {"est_states": r.est_states, "deviations": r.deviations,
+                      "covariances": r.covariances, "innovations": r.innovations,
+                      "ref_states": r.ref_states, **r.estimates._asdict()}
+    got, want = pick(res), pick(plain)
+    gaps = {name: float((got[name] - w).abs().max() / w.abs().max()) for name, w in want.items()
+            if name != "measurement"}
+    gaps["measurement"] = float((got["measurement"] - want["measurement"]).abs().max())
+    ref_equal = bool(torch.equal(got["ref_states"], want["ref_states"]))
+    del res, plain, got, want
+    check(all(v < 1e-7 for v in gaps.values()),
+          f"[od_fused] fused and replayed outputs differ: {gaps}")
+    # The clock64 split of the diagnostic build (lane 0 of each warp of block 0).
+    run = fused_od.run
+    fused_od.run = functools.partial(run, clocks=True)
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        fused_od.run = run
+    split = {name: round(c / steps, 1) for name, c in fused_od.read_clocks().items()}
+    kernel = ("not measured (no device events)" if device_ms is None else
+              f"{device_ms:.3f} ms device ({100 * bound_ms / device_ms:.3f}% of the "
+              f"bound, {100 * all_ms / device_ms:.2f}% of all outputs' bytes)")
+    log(f"[od_fused] K = {k}, T = {steps}, f64 SNC on {card}: ptxas {ptxas}; kernel {kernel}; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB); "
+        f"all outputs {all_bytes / 1e9:.3f} GB, {all_ms:.3f} ms; run_srif_od {call_ms:.3f} ms a "
+        f"call (CUDA events, median of {OD_FUSED_ROUNDS}; min {times[0]:.3f}, max "
+        f"{times[-1]:.3f}), {k * steps / call_ms * 1e3:.4g} object-steps/s, "
+        f"{kernels_a_call:.1f} kernels a call; the scan path's graph replay {replay_ms:.1f} ms "
+        f"a call (capture included); widest gaps over max-abs {json.dumps(gaps)}, reference "
+        f"trajectory bit-identical {ref_equal}; clock64 cycles a step (lane 0 of each warp, "
+        f"block 0) {json.dumps(split)}; phase {time.perf_counter() - t_phase:.1f} s host clock")
+    return dict(ms=device_ms, call_ms=call_ms, plain_ms=replay_ms, bound_ms=bound_ms,
+                bound_by=bound_by, all_outputs_ms=all_ms, gaps=gaps, clocks=split,
+                max_abs=max(gaps.values()), launches=launches)
+
+
 def nav_streams(np, rng, steps, dt, landmarks):
     """A maneuvering IMU arc (tests/test_iekf.py's sinusoid body rates and
     specific force) with noisy gyro / accel, landmark, GPS and body-velocity
@@ -4733,6 +4859,8 @@ def run():
     timed("bank", phase_bank, gt, torch, device, card)
     imm_fused = timed("imm fused", phase_imm_fused, gt, torch, device, card)
     counts["fused_imm"], max_err["fused_imm"] = imm_fused["launches"], imm_fused["max_abs"]
+    od_fused = timed("od fused", phase_od_fused, gt, torch, device, card)
+    counts["fused_od"], max_err["fused_od"] = od_fused["launches"], od_fused["max_abs"]
     timed("nav", phase_nav, gt, torch, device, card)
     timed("factored", phase_factored, gt, torch, device, card)
     timed("tracking", phase_tracking, gt, torch, device, card)
@@ -4768,7 +4896,11 @@ def run():
         kernel_entry("fused_imm", counts, max_err, imm_fused["ms"], imm_fused["plain_ms"],
                      None, imm_fused["bound_ms"], imm_fused["bound_by"],
                      call_ms=imm_fused["call_ms"], replay_ms=imm_fused["replay_ms"],
-                     gaps=imm_fused["gaps"])]
+                     gaps=imm_fused["gaps"]),
+        kernel_entry("fused_od", counts, max_err, od_fused["ms"], od_fused["plain_ms"],
+                     None, od_fused["bound_ms"], od_fused["bound_by"],
+                     call_ms=od_fused["call_ms"], all_outputs_ms=od_fused["all_outputs_ms"],
+                     gaps=od_fused["gaps"], clocks=od_fused["clocks"])]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

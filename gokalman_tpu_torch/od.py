@@ -16,9 +16,11 @@ Schmidt filter's consider analysis.
 
 `run_srif_od` also runs a catalog: K objects, each on its own pass
 schedule, in one scan.  Its host work before and after the scan are the
-spans `od.setup` and `od.outputs`; `counts` holds its always-on
-counters, moved once a call: calls (`runs`) and the (object, step) pairs
-they filtered (`object_steps`).
+spans `od.setup` and `od.outputs`; a float64 run with state-noise
+compensation on the card is one launch of `ops.fused_od`'s kernel
+instead (span `od.fused` after `od.setup`).  `counts` holds its
+always-on counters, moved once a call: calls (`runs`) and the (object,
+step) pairs they filtered (`object_steps`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from .dynamics.propagate import MeasurementSet
 from .filters import batch as batch_ls
 from .filters import hybrid, schmidt, srif
 from .noise import Noise
+from .ops import fused_od
 from .ops.scan import scan
 
 #: Since the last `reset_counts()`: `run_srif_od` calls, and the
@@ -553,6 +556,13 @@ def run_srif_od(
     with an object axis needs `x0_ref` [K, 6] of the same K, else a
     ValueError before any device work.  `device` and `graph` as in
     `run_hybrid_od`.
+
+    A float64 run on the card with `snc_q`, RK4 in one substep, degree-2
+    gravity and no `truth0` (and no gradient wanted) runs as one launch of
+    the fused kernel, every step of every object inside it
+    (`ops.fused_od.takes` says when; span `od.fused`).  Every other call,
+    and every call with `graph=False`, runs the step under
+    `ops.scan.scan`.
     """
     per_object = _per_object(x0_ref, meas)
     with profiling.span("od.setup"):
@@ -560,43 +570,52 @@ def run_srif_od(
         dtype, dev, meas = s.dtype, s.device, s.meas
         as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
         x0_ref = s.x0
-        eom = functools.partial(gravity.eom, degree=degree)
-        phi_flow = integrators.flow(eom, dt, method, substeps)
         noise = _noise(noise, s)
-
-        gamma = None
+        p0 = as_t(p0)
         if snc_q is not None:
             snc_q = as_t(snc_q)
             if snc_q.shape != (3, 3):
                 raise ValueError("snc_q must be the 3x3 acceleration PSD")
-            noise = noise._replace(q=snc_q)
-            gamma = snc_gamma(dt, dtype, dev)
-        model, sstate0, _ = srif.new(x0_ref.new_zeros(6), as_t(p0), 2, non_tri_r, noise,
-                                     gamma=gamma)
         self_consistent = truth0 is not None
-        body = _srif_body(s, model, phi_flow, theta0, self_consistent)
-
-        xs = (meas.obs, meas.station_idx, meas.has_meas, s.times)
-        truth = as_t(truth0) if self_consistent else None
-        step, has_meas = body, meas.has_meas
-        if x0_ref.dim() == 2:
-            # K spacecraft: every carry leaf gets the K axis, a shared
-            # schedule is read by every object, and the step is vmapped
-            # over K with row t of each object's schedule staged
-            # time-major ([T, K, ...]).
-            k = x0_ref.shape[0]
-            grow = lambda a: a.expand((k,) + a.shape).clone()
-            sstate0 = srif.State(*map(grow, sstate0))
-            if self_consistent and truth.dim() == 1:
-                truth = grow(truth)
-            if not per_object:
-                has_meas = has_meas.expand(k, -1)
-                meas = MeasurementSet(meas.obs.expand((k,) + meas.obs.shape), None, has_meas,
-                                      meas.station_idx.expand(k, -1))
-            rows = lambda a: a.transpose(0, 1).contiguous()
-            xs = (rows(meas.obs), rows(meas.station_idx), rows(meas.has_meas), s.times)
-            step = torch.func.vmap(body, in_dims=(0, (0, 0, 0, None)))
-        carry0 = (x0_ref, sstate0) if truth is None else (truth, x0_ref, sstate0)
+        fused = fused_od.takes(x0_ref, p0, noise.r, snc_q, meas.obs, meas.has_meas, s.stations,
+                               truth=self_consistent, method=method, degree=degree,
+                               substeps=substeps, graph=graph)
+        if fused:
+            params = fused_od.pack_params(p0, snc_q, noise.r, s.stations, dt)
+            trig = fused_od.earth_angle(s.times, theta0)
+        else:
+            eom = functools.partial(gravity.eom, degree=degree)
+            phi_flow = integrators.flow(eom, dt, method, substeps)
+            gamma = None
+            if snc_q is not None:
+                noise = noise._replace(q=snc_q)
+                gamma = snc_gamma(dt, dtype, dev)
+            model, sstate0, _ = srif.new(x0_ref.new_zeros(6), p0, 2, non_tri_r, noise,
+                                         gamma=gamma)
+            body = _srif_body(s, model, phi_flow, theta0, self_consistent)
+            xs = (meas.obs, meas.station_idx, meas.has_meas, s.times)
+            truth = as_t(truth0) if self_consistent else None
+            step, has_meas = body, meas.has_meas
+            if x0_ref.dim() == 2:
+                # K spacecraft: every carry leaf gets the K axis, a shared
+                # schedule is read by every object, and the step is vmapped
+                # over K with row t of each object's schedule staged
+                # time-major ([T, K, ...]).
+                k = x0_ref.shape[0]
+                grow = lambda a: a.expand((k,) + a.shape).clone()
+                sstate0 = srif.State(*map(grow, sstate0))
+                if self_consistent and truth.dim() == 1:
+                    truth = grow(truth)
+                if not per_object:
+                    has_meas = has_meas.expand(k, -1)
+                    meas = MeasurementSet(meas.obs.expand((k,) + meas.obs.shape), None,
+                                          has_meas, meas.station_idx.expand(k, -1))
+                rows = lambda a: a.transpose(0, 1).contiguous()
+                xs = (rows(meas.obs), rows(meas.station_idx), rows(meas.has_meas), s.times)
+                step = torch.func.vmap(body, in_dims=(0, (0, 0, 0, None)))
+            carry0 = (x0_ref, sstate0) if truth is None else (truth, x0_ref, sstate0)
+    if fused:
+        return _fused_srif(s, params, trig, per_object)
     _, ys = scan(step, carry0, xs, graph=graph)
     with profiling.span("od.outputs"):
         if x0_ref.dim() == 2:
@@ -604,6 +623,29 @@ def run_srif_od(
         full, dev_x, cov, innov, refs, ests, *truths = ys
         result = ODResult(full, dev_x, cov, innov, refs, has_meas, ests, None,
                           truths[0] if truths else None)
+    counts["runs"] += 1
+    counts["object_steps"] += full[..., 0].numel()
+    return result
+
+
+def _fused_srif(s: _Setup, params, trig, per_object: bool) -> ODResult:
+    """`run_srif_od` as one launch of `ops.fused_od`'s kernel on the
+    parameter block and the Earth angle made under `od.setup` (the kernel
+    derives what `srif.new` would from P0, Q and R): the outputs come back
+    time-major ([T, K, ...]) and are handed on as [K, T, ...] views, as the
+    scan path's are (no K axis for x0 [6])."""
+    x0, meas = s.x0, s.meas
+    with profiling.span("od.fused"):
+        outs = fused_od.run(params, x0.reshape(-1, 6), meas.obs, meas.station_idx,
+                            meas.has_meas, trig, s.stations.latitude.shape[0])
+        view = (lambda a: a.movedim(1, 0)) if x0.dim() == 2 else (lambda a: a.select(1, 0))
+        (full, dev_x, cov, innov, refs, phi, sqinfo, measurement, obs_dev, r_k,
+         pred_r) = map(view, outs)
+        has_meas = meas.has_meas
+        if x0.dim() == 2 and not per_object:
+            has_meas = has_meas.expand(x0.shape[0], -1)
+        ests = srif.Estimate(phi, sqinfo, measurement, obs_dev, r_k, pred_r)
+        result = ODResult(full, dev_x, cov, innov, refs, has_meas, ests)
     counts["runs"] += 1
     counts["object_steps"] += full[..., 0].numel()
     return result

@@ -1,0 +1,191 @@
+"""Fused SRIF orbit determination: a catalog's whole `od.run_srif_od` in one CUDA launch.
+
+`csrc/fused_od.cu:fused_srif_od_kernel` runs every step of every object
+of a float64 SRIF orbit determination with state-noise compensation in
+one launch: the T loop inside the kernel, each object's step a pipeline
+over four warps (trajectory, linearization, filter, read-out and
+stores), its state on chip between steps (the source's note gives the
+design).  It computes `od._srif_body`'s step (RK4 of
+two-body + J2 with its STM, the Dyer–McReynolds time update, the range /
+range-rate measurement update, the read-outs) and writes every field
+`run_srif_od` returns, float64, in the scan path's storage, so callers
+read the same tensors on either path.
+
+Dispatch (`takes`): `run_srif_od` takes the kernel for a float64 run on
+one CUDA device with `snc_q` given, RK4 in one substep, degree-2 gravity,
+no co-propagated truth, `graph=True`, no gradient wanted, at most
+`MAX_STATIONS` stations and at least one step.  Every other call runs the
+`ops.scan` path, whose step is `od._srif_body`: the kernel's plain
+version, which the CPU always takes and `run_srif_od(..., graph=False)`
+gives on the card.  `launches` counts the kernel's launches, one per
+call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..dynamics import constants as c
+from . import scan
+from .fused_imm import _on_card
+from .fused_mc import _launch
+
+SOURCE = "fused_od.cu"
+MAX_STATIONS = 8  # csrc/fused_od.cu:MAX_S, the stations its parameter block holds
+
+#: The kernel's outputs in its order: `ODResult`'s and `srif.Estimate`'s
+#: fields with the shape of one object-step.
+FIELDS = {"est_states": (6,), "deviations": (6,), "covariances": (6, 6), "innovations": (2,),
+          "ref_states": (6,), "phi": (6, 6), "sqinfo_state": (6,), "measurement": (2,),
+          "obs_dev": (2,), "r": (6, 6), "pred_r": (6, 6)}
+
+#: Parameter block (csrc/fused_od.cu:Plan): P0's diagonal, Q, R, then
+#: dt, 0.5 dt² and the Earth constants, then the stations' latitudes,
+#: longitudes and altitudes.
+PARAM_PARTS = (("p0", 6), ("q", 9), ("r", 4), ("scalars", 6))
+
+
+def param_len(stations: int) -> int:
+    return sum(n for _, n in PARAM_PARTS) + 3 * stations
+
+
+#: Kernel launches since the last `reset_launches()`.
+launches = {"fused_od": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def takes(x0, p0, r, q, obs, has_meas, stations, *, truth: bool, method: str, degree: int,
+          substeps: int, graph: bool) -> bool:
+    """Whether `run_srif_od` runs as one launch of the fused kernel: `x0`
+    [K, 6] or [6], `p0` [6, 6], the noise `r` [2, 2], the SNC PSD `q`
+    [3, 3] (state-noise compensation armed), `obs` [..., T, 2] with T at
+    least 1 and the stacked `stations` (1 to MAX_STATIONS), every float
+    tensor float64 and all on one CUDA device; no co-propagated truth,
+    `method` "rk4" in one substep, `degree` 2, `graph` True and no
+    gradient wanted (`ops.scan.needs_autograd`)."""
+    if not graph or q is None or truth or method != "rk4" or substeps != 1 or degree != 2:
+        return False
+    if x0.shape[-1:] != (6,) or x0.dim() > 2 or x0.numel() == 0 or has_meas.shape[-1] < 1:
+        return False
+    shapes = ((p0, (6, 6)), (r, (2, 2)), (q, (3, 3)))
+    if any(tuple(a.shape) != shape for a, shape in shapes) or obs.shape[-1:] != (2,):
+        return False
+    if not 1 <= stations.latitude.shape[0] <= MAX_STATIONS:
+        return False
+    floats = (x0, p0, r, q, obs) + tuple(stations)
+    if not _on_card(floats + (has_meas,)) or any(a.dtype != torch.float64 for a in floats):
+        return False
+    return not scan.needs_autograd(floats)
+
+
+@functools.lru_cache(maxsize=None)
+def load(clocks: bool = False):
+    """Build (at first use) and load the kernel, or its diagnostic copy
+    that keeps clock64 per phase (`read_clocks`)."""
+    from . import _build
+
+    lib = _build.load(SOURCE, {"FUSED_OD_CLOCKS": int(clocks)})
+    lib.fused_od_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6
+                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12)
+    lib.fused_od_read_clocks.argtypes = [ctypes.c_void_p]
+    lib.fused_od_param_len.argtypes = [ctypes.c_int]
+    for fn in (lib.fused_od_launch, lib.fused_od_param_len, lib.fused_od_max_stations,
+               lib.fused_od_read_clocks):
+        fn.restype = ctypes.c_int
+    if (lib.fused_od_max_stations() != MAX_STATIONS
+            or any(lib.fused_od_param_len(n) != param_len(n) for n in (1, MAX_STATIONS))):
+        raise RuntimeError("csrc/fused_od.cu Plan disagrees with ops/fused_od.py")
+    return lib
+
+
+#: The diagnostic build's phase clocks (`read_clocks`), in its order: per
+#: warp of the step pipeline, its stage's phases and its wait at the step
+#: barrier, then the whole loop.
+CLOCKS = ("trajectory_rk4", "trajectory_wait", "linearize_phi_inv", "linearize_geometry",
+          "linearize_wait", "filter_time_update", "filter_meas_update", "filter_wait",
+          "readout_readouts", "readout_stores", "readout_wait", "loop")
+
+
+def read_clocks() -> dict:
+    """The diagnostic copy's clock64 sums over its last launch, for lane 0
+    of each warp of block 0, by phase (`CLOCKS`): RK4 with the STM (warp
+    0), Φ⁻¹ and the station geometry (warp 1), the time and measurement
+    updates (warp 2), the read-outs and the stores (warp 3), each warp's
+    wait at the step barrier, and the whole loop."""
+    buf = (ctypes.c_ulonglong * len(CLOCKS))()
+    err = load(True).fused_od_read_clocks(ctypes.addressof(buf))
+    if err:
+        raise RuntimeError(f"fused_od clocks read failed: CUDA error {err}")
+    return dict(zip(CLOCKS, buf))
+
+
+def pack_params(p0, q, r, stations, dt: float) -> torch.Tensor:
+    """The kernel's parameter block, one float64 vector on p0's device, in
+    one `torch.cat`: P0's diagonal, Q [3, 3] and R [2, 2] row-major, then
+    dt, 0.5 dt² and the Earth constants as `od.snc_gamma` and
+    `gravity.acceleration` form them, then the stacked `stations`'
+    latitudes, longitudes and altitudes ([S] each).  The kernel derives
+    R0, R_w, W and the stations' ECEF positions from them."""
+    scalars = (dt, 0.5 * dt * dt, c.GM_EARTH, -1.5 * c.J2 * c.GM_EARTH * c.R_EARTH**2,
+               c.EARTH_ROTATION_RATE, c.R_EARTH)
+    parts = (torch.diagonal(p0), q.reshape(-1), r.reshape(-1),
+             torch.tensor(scalars, dtype=p0.dtype, device=p0.device), stations.latitude,
+             stations.longitude, stations.altitude)
+    return torch.cat(parts)
+
+
+def earth_angle(times, theta0: float) -> torch.Tensor:
+    """[T, 2]: cos and sin of the Earth angle θ0 + Ω_E t at the step times,
+    computed as the scan path's step computes them (`od._srif_body`,
+    `stations.eci_state`)."""
+    theta = theta0 + c.EARTH_ROTATION_RATE * times
+    return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+
+
+def run(params, x0, obs, station_idx, has_meas, trig, stations: int, *, clocks: bool = False):
+    """Launch the kernel: `params` from `pack_params`, the a-priori
+    reference states x0 [K, 6], the schedule, per object (obs [K, T, 2],
+    station_idx and has_meas [K, T]) or shared by every object ([T, 2],
+    [T]), and the Earth angle's cos and sin `trig` [T, 2] (`earth_angle`),
+    all on one card.  Returns the outputs of `FIELDS`, each
+    [T, K, ...] float64 (time-major, as the scan path stores them)."""
+    k = x0.shape[0]
+    t = has_meas.shape[-1]
+    shared = has_meas.dim() == 1
+    lead = (t,) if shared else (k, t)
+    device = x0.device
+    ins = [params, x0, obs, trig]
+    if any(a.dtype != torch.float64 or a.device != device for a in ins):
+        raise ValueError("fused_od takes float64 params, x0, obs and trig on one device")
+    if station_idx.device != device or has_meas.device != device:
+        raise ValueError("fused_od takes the schedule on x0's device")
+    if has_meas.dtype != torch.bool or station_idx.dtype.is_floating_point:
+        raise ValueError("fused_od takes a bool has_meas and an integer station_idx")
+    shapes = [(param_len(stations),), (k, 6), lead + (2,), lead, lead, (t, 2)]
+    got = [tuple(a.shape) for a in (params, x0, obs, station_idx, has_meas, trig)]
+    if got != shapes or k < 1 or t < 1:
+        raise ValueError(f"fused_od shapes {got}, want {shapes} with K and T at least 1")
+    if not 1 <= stations <= MAX_STATIONS:
+        raise ValueError(f"fused_od takes 1 to {MAX_STATIONS} stations, got {stations}")
+    params, x0, obs, trig = (a.contiguous() for a in ins)
+    idx = station_idx.to(torch.int64).contiguous()
+    has = has_meas.contiguous().view(torch.uint8)
+    obj = 0 if shared else t  # the object stride of idx and has; obs's is twice it
+    lib = load(clocks)
+    outs = [torch.empty((t, k) + shape, dtype=torch.float64, device=device)
+            for shape in FIELDS.values()]
+    err = _launch(lib.fused_od_launch, device, params.data_ptr(), x0.data_ptr(),
+                  obs.data_ptr(), idx.data_ptr(), has.data_ptr(), trig.data_ptr(), 2 * obj, 2,
+                  obj, 1, obj, 1,
+                  t, k, stations, *(a.data_ptr() for a in outs))
+    if err:
+        raise RuntimeError(f"fused_od kernel launch failed: CUDA error {err}")
+    launches["fused_od"] += 1
+    return outs

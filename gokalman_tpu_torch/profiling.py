@@ -12,10 +12,13 @@ and its set-up (`fused_mc.path`, `fused_mc.fixed_host`, `build.load`,
 `model.van_loan`, `model.vanilla_new`, `model.imm_new`), each phase of a
 scan (`scan.warmup`, `scan.capture`, `scan.replay`, `scan.plain`), the
 IMM step's phases (`imm.mix`, `imm.modes`, `imm.posterior`, `imm.match`),
-the fused IMM bank kernel's host path (`imm.fused`) and the SRIF orbit
+the fused IMM bank kernel's host path (`imm.fused`), the SRIF orbit
 determination's host work before and after its scan (`od.setup`: the
-inputs, `srif.new` and the staged schedule; `od.outputs`: the outputs
-reordered object-major and the `ODResult`).
+inputs, `srif.new` and the staged schedule, or on the fused path the
+kernel's parameter block and Earth angle instead; `od.outputs`: the outputs
+reordered object-major and the `ODResult`) and the fused OD kernel's
+host path (`od.fused`: the checks, the outputs, the launch and the
+`ODResult`).
 Spans are off unless `enable(True)` was called or a torch profiler is
 recording.  Off, `span` returns one shared no-op context: it reads no
 clock and calls nothing of the profiler.  On, a span appends
@@ -35,7 +38,9 @@ Counters.  `counters()` gathers the program's always-on counters under
 dotted names: `scan.captures`, `scan.replays`, `scan.plain_steps`
 (`ops.scan.counts`), `fused_mc.launches.<kernel>`
 (`ops.fused_mc.launches`), `fused_imm.launches.fused_imm`
-(`ops.fused_imm.launches`), `od.runs` and `od.object_steps`
+(`ops.fused_imm.launches`), `fused_od.launches.fused_od`
+(`ops.fused_od.launches`: one a fused `run_srif_od`), `od.runs` and
+`od.object_steps`
 (`od.counts`: `run_srif_od` calls and the K x T object-steps they
 filtered, known on the host).  Host syncs and allocations are not counted:
 the profiler records the CUDA runtime calls (`cudaStreamSynchronize`,
@@ -130,11 +135,12 @@ def reset() -> None:
 def counters() -> dict:
     """One flat snapshot of the program's counters, by dotted name."""
     from . import od
-    from .ops import fused_imm, fused_mc, scan
+    from .ops import fused_imm, fused_mc, fused_od, scan
 
     out = {f"scan.{k}": v for k, v in scan.counts.items()}
     out.update({f"fused_mc.launches.{k}": v for k, v in fused_mc.launches.items()})
     out.update({f"fused_imm.launches.{k}": v for k, v in fused_imm.launches.items()})
+    out.update({f"fused_od.launches.{k}": v for k, v in fused_od.launches.items()})
     out.update({f"od.{k}": v for k, v in od.counts.items()})
     return out
 

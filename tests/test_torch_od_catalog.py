@@ -22,7 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_od import BOUNDS, assert_result_close
+import test_torch_fused_od as fused_tests
+from test_torch_od import (BOUNDS, ESTIMATE_FIELDS, FILTER_FIELDS, assert_result_close,
+                           rel_diff)
 
 from gokalman_tpu import noise as jnoise
 from gokalman_tpu import od as jod
@@ -116,13 +118,53 @@ def jax_catalog(cfg, sc):
         j(sc["x0_ref"]), meas)
 
 
+@functools.lru_cache(maxsize=1)
+def jax_case():
+    cfg, sc, _ = case()
+    return jax_catalog(cfg, sc)
+
+
 def test_catalog_matches_jax_vmap():
     """Every ODResult field of the K objects against JAX's vmap of the
     whole runner, at test_torch_od.py's bounds (measured: estimates
     1.2e-13, deviations 4.0e-11, innovations 1.0e-10, covariances
     6.3e-14 of their max-abs)."""
-    cfg, sc, res = case()
-    assert_result_close(res, jax_catalog(cfg, sc), BOUNDS)
+    _, _, res = case()
+    assert_result_close(res, jax_case(), BOUNDS)
+
+
+# The scene's inputs and JAX's vmapped run of them, stored for
+# tests/test_torch_fused_od.py, which holds the fused kernel to them on the
+# card, where the JAX package does not run.  Rewritten by
+# `PYTHONPATH=. python tests/test_torch_od_catalog.py` from the repo root.
+JAX_FILE = REPO / "tests" / "data" / "od_catalog_jax.npz"
+JAX_INPUTS = ("x0_ref", "obs", "has_meas", "station_idx")
+JAX_FIELDS = ESTIMATE_FIELDS[:2] + FILTER_FIELDS  # every ODResult field but truth and has_meas
+
+
+def write_jax_file(path=JAX_FILE):
+    cfg, sc, _ = case()
+    want = jax_case()
+    np.savez_compressed(path, theta0=np.float64(sc["theta0"]),
+                        **{name: sc[name].numpy() for name in JAX_INPUTS},
+                        **{name: np.asarray(getattr(want, name)) for name in JAX_FIELDS})
+
+
+def test_jax_file_holds_the_jax_run_of_the_scene():
+    """The stored inputs are this module's scene, the stored outputs JAX's
+    run of it, each field within a hundredth of its bound of it (bit for
+    bit where the file was written); the card test's bounds are
+    test_torch_od.py's."""
+    _, sc, _ = case()
+    data = np.load(JAX_FILE)
+    assert float(data["theta0"]) == float(sc["theta0"])
+    for name in JAX_INPUTS:
+        assert data[name].dtype == sc[name].numpy().dtype, name
+        np.testing.assert_array_equal(data[name], sc[name].numpy(), err_msg=name)
+    want = jax_case()
+    for name in JAX_FIELDS:
+        assert rel_diff(data[name], getattr(want, name)) <= BOUNDS[name] / 100, name
+    assert fused_tests.JAX_BOUNDS == {name: BOUNDS[name] for name in JAX_FIELDS}
 
 
 @pytest.mark.parametrize("form", ["catalog_of_one", "one_spacecraft"])
@@ -210,3 +252,10 @@ def test_spans_and_counters(on):
         assert names == ["od.setup", "od.outputs"] * 2
     else:  # off, a span is the shared no-op context and records nothing
         assert names == [] and off_span is profiling._OFF
+
+
+if __name__ == "__main__":
+    # float64 on the CPU, as tests/conftest.py sets JAX up
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    write_jax_file()
