@@ -41,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import noise
+from . import noise, profiling
 from ._device import resolve_device
 from .filters import enkf, iekf, jpda, lmb, particle, pmb, vanilla
 from .ops import assoc_scan, bank, ensemble, fused_mc
@@ -235,10 +235,10 @@ def _dryrun_rank(n: int, device_name: str, t_spawn: float):
            f"sharded mc_chi_square != unsharded ({gaps['mc_chi_square']:.3g})")
 
     # 2. K1 on every rank, pooled.
-    fused_mc.reset_launches()
+    profiling.reset_counters()
     pres = timed("fused_mc", lambda: pmesh.sharded_mc_chi_square_fused(
         model, st, FUSED_PER_RANK, DRY_STEPS, 0, mesh, init_spread=False))
-    k1_launches = fused_mc.launches["fused_mc"]
+    k1_launches = profiling.counters()["fused_mc.launches.fused_mc"]
     _check(pres.nees_means.shape == (DRY_STEPS,) and all(bool(torch.isfinite(a).all())
                                                          for a in pres),
            "fused-kernel pipeline: shape or finiteness")

@@ -44,15 +44,10 @@ from .noise import Noise
 from .ops import fused_od
 from .ops.scan import scan
 
-#: Since the last `reset_counts()`: `run_srif_od` calls, and the
-#: (object, time-step) pairs they filtered (K x T a call, 1 x T for one
-#: spacecraft).
-counts = {"runs": 0, "object_steps": 0}
-
-
-def reset_counts() -> None:
-    for name in counts:
-        counts[name] = 0
+#: Since the last `profiling.reset_counters()`: `run_srif_od` calls, and
+#: the (object, time-step) pairs they filtered (K x T a call, 1 x T for
+#: one spacecraft).
+counts = profiling.counter_group("od", "runs", "object_steps")
 
 
 class ODResult(NamedTuple):

@@ -9,7 +9,7 @@ sequential scan (one CUDA graph replayed per step on the card) and the
 log-depth associative scan, `assoc_scan` the parallel-in-time filter and
 RTS smoother built on the latter, `bank` a bank of filters as one
 scan, `assign` exact small assignments over cached permutation tables.
-`_build` compiles `csrc/*.cu` at first use only.
+`_build`, the seam to `csrc/*.cu`, builds, binds, launches and counts the kernels.
 """
 
 from . import assign, assoc_scan, bank, ensemble, fused_imm, fused_mc, fused_od, philox, scan

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""The one seam between the port and its CUDA kernels: build, bind, launch, count.
 
 Each `csrc/*.cu` file has a plain C interface.  `load` compiles it with
 nvcc for sm_90a into a shared library under `build/kernels/` at the
@@ -8,9 +8,14 @@ the specialisation defines, on disk and in the process, so a
 specialisation builds once (a few seconds) at its first use.  Nothing
 here runs at import time.
 
-Callers set `argtypes` on the entry points: pointers and the stream are
-`ctypes.c_void_p`, so ctypes does not cut them to 32 bits.  Every C
-entry returns `cudaGetLastError()`; the caller raises if it is not 0.
+A wrapper hands `load` one table of the library's C entries and their
+`argtypes` (pointers and the stream as `ctypes.c_void_p`, so ctypes does
+not cut them to 32 bits); each returns a C int unless named `void`.
+Every launch goes through `launch`, which passes the current stream,
+raises on the error code the C side returns (`cudaGetLastError()`) and
+counts the launch in the wrapper's `launches` group
+(`profiling.counter_group`).  `on_card` is the wrappers' test that a
+call's tensors lie on one CUDA device.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Mapping, Sequence
+
+import torch
 
 from .. import profiling
 
@@ -49,9 +56,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load(source: str, defines: Dict[str, int]) -> ctypes.CDLL:
+def load(source: str, defines: Dict[str, int], entries: Mapping[str, Sequence],
+         void: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile (if needed) and load `csrc/<source>` with `-D` defines
-    (span `build.load`)."""
+    (span `build.load`), its C `entries` ({name: argtypes}) declared to
+    return a C int, or nothing for the names in `void`."""
     with profiling.span("build.load"):
         src = CSRC / source
         flags = list(NVCC_FLAGS) + [f"-D{k}={v}" for k, v in sorted(defines.items())]
@@ -79,8 +88,34 @@ def load(source: str, defines: Dict[str, int]) -> ctypes.CDLL:
                     f"{defines}:\n{proc.stderr[-4000:]}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, None if name in void else ctypes.c_int
         _loaded[tag] = lib
         records.append({"source": source, "defines": dict(defines),
                         "path": str(so), "seconds": seconds,
                         "ptxas": log.read_text() if log.exists() else ""})
         return lib
+
+
+def launch(launches: Dict[str, int], kernel: str, fn, device: torch.device, *args) -> None:
+    """`fn(*args, stream)`, a C launch function, on `device`'s current
+    stream; the device is made current only if it is not already (the
+    context switch would cost every call several microseconds).  Raises
+    if `fn` returns a CUDA error, else counts one in `launches[kernel]`."""
+    current = torch._C._cuda_getDevice()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    launches[kernel] += 1
+
+
+def on_card(tensors) -> bool:
+    """All on one CUDA device."""
+    return all(a.is_cuda for a in tensors) and len({a.device for a in tensors}) == 1

@@ -24,24 +24,17 @@ import functools
 
 import torch
 
-from . import scan
-from .fused_mc import _launch
+from .. import profiling
+from . import _build, scan
 
 SOURCE = "fused_imm.cu"
 MAX_N, MAX_P, MAX_M = 8, 4, 4  # the specialisations' register budget
+#: The kernel's C entries and their argument types (`_build.load`).
+ENTRIES = {"fused_imm_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11,
+           "fused_imm_param_len": []}
 
-#: Kernel launches since the last `reset_launches()`.
-launches = {"fused_imm": 0}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-
-
-def _on_card(tensors) -> bool:
-    """All on one CUDA device."""
-    return all(a.is_cuda for a in tensors) and len({a.device for a in tensors}) == 1
+#: Kernel launches since the last `profiling.reset_counters()`.
+launches = profiling.counter_group("fused_imm.launches", "fused_imm")
 
 
 def takes(model, state, measurements, controls=None, meas_masks=None, graph: bool = True) -> bool:
@@ -56,7 +49,7 @@ def takes(model, state, measurements, controls=None, meas_masks=None, graph: boo
     modes = model.modes
     tensors = (modes.f, modes.h, modes.noise.q, modes.noise.r, model.trans, state.xs, state.ps,
                state.mu, measurements)
-    if state.xs.dim() != 3 or measurements.dim() != 3 or not _on_card(tensors):
+    if state.xs.dim() != 3 or measurements.dim() != 3 or not _build.on_card(tensors):
         return False
     if any(a.dtype != torch.float32 for a in tensors):
         return False
@@ -75,12 +68,7 @@ def takes(model, state, measurements, controls=None, meas_masks=None, graph: boo
 @functools.lru_cache(maxsize=None)
 def load(n: int, p: int, m: int):
     """Build (at first use) and load the (n, p, M) specialisation."""
-    from . import _build
-
-    lib = _build.load(SOURCE, {"KN": n, "KP": p, "KM": m})
-    lib.fused_imm_launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                                     + [ctypes.c_void_p] * 11)
-    lib.fused_imm_launch.restype = lib.fused_imm_param_len.restype = ctypes.c_int
+    lib = _build.load(SOURCE, {"KN": n, "KP": p, "KM": m}, ENTRIES)
     if lib.fused_imm_param_len() != param_len(n, p, m):
         raise RuntimeError("csrc/fused_imm.cu Plan disagrees with param_len")
     return lib
@@ -118,9 +106,6 @@ def run(f, h, q, r, trans, xs, ps, mu, ys):
     est = (empty(t, b, n), empty(t, b, n, n), empty(t, b, m), empty(t, b, m, p), empty(t, b),
            empty(t, b, m, n), empty(t, b, m, n, n))
     final = (empty(b, m, n), empty(b, m, n, n), empty(b, m))
-    err = _launch(lib.fused_imm_launch, device, *(a.data_ptr() for a in ins), t, b,
-                  *(a.data_ptr() for a in est + final))
-    if err:
-        raise RuntimeError(f"fused_imm kernel launch failed: CUDA error {err}")
-    launches["fused_imm"] += 1
+    _build.launch(launches, "fused_imm", lib.fused_imm_launch, device,
+                  *(a.data_ptr() for a in ins), t, b, *(a.data_ptr() for a in est + final))
     return final, est

@@ -24,8 +24,7 @@ Dispatch.  Each wrapper launches its kernel when its tensors lie on a
 CUDA device, and raises if the build or the launch fails; it takes the
 plain PyTorch version only for tensors on the CPU.  `launches` counts
 kernel launches, one per launch, nowhere else.  A launch passes the
-64-bit seed to C, which builds the Philox round keys, and enters the
-device's context only when it is not the current one (`_launch`).
+64-bit seed to C, which builds the Philox round keys (`_build.launch`).
 
 Path row layout per step (float32): K [n,p], the NEES weights P⁺⁻¹
 and the NIS weights S⁻¹ as packed upper triangles (row-major, the
@@ -49,7 +48,7 @@ from torch import nn
 from .. import linalg, profiling
 from .._device import resolve_device
 from ..filters import vanilla
-from . import philox
+from . import _build, philox
 from .ensemble import ChiSquareResult, covariance_path, pool_moments
 
 BLOCK = 256  # ensemble members per CUDA block (KBLOCK in the kernel)
@@ -58,13 +57,16 @@ SOURCE = "fused_mc.cu"  # K1
 K2_SOURCE = "sample_normals.cu"
 GENERATORS = {"box_muller": False, "clt": True}
 
-#: Kernel launches since the last `reset_launches()`, per kernel.
-launches = {"fused_mc": 0, "sample_normals": 0}
+_P, _INT = ctypes.c_void_p, ctypes.c_int
+#: K1's and K2's C entries and their argument types (`_build.load`).
+ENTRIES = {"fused_mc_launch": [_P, _P, ctypes.c_uint64, _INT, _INT, ctypes.c_uint32, _INT, _P, _P],
+           **{f"fused_mc_{fn}": [] for fn in ("row_len", "fixed_len", "chunk_steps", "smem_bytes")}}
+K2_ENTRIES = {"sample_normals_launch": [_P, ctypes.c_longlong, ctypes.c_uint64, _INT, _P],
+              "philox_key_schedule": [ctypes.c_uint64, _P], "sample_normals_init": [],
+              "sample_normals_grid": [_INT], "sample_normals_threads": []}
 
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+#: Kernel launches since the last `profiling.reset_counters()`, per kernel.
+launches = profiling.counter_group("fused_mc.launches", "fused_mc", "sample_normals")
 
 
 def _pad4(k: int) -> int:
@@ -258,33 +260,12 @@ def _partials_ref(rows, fixed, n, p, tv, ctrl, samples, seed, fast_rng,
 @functools.lru_cache(maxsize=None)
 def load_fused_mc(n: int, p: int, tv: bool, ctrl: bool):
     """Build (at first use) and load K1's (n, p, tv, ctrl) specialisation."""
-    from . import _build
-
     lib = _build.load(SOURCE, {"KN": n, "KP": p, "KTV": int(tv),
-                               "KCTRL": int(ctrl), "KBLOCK": BLOCK})
-    lib.fused_mc_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
-    for fn in ("launch", "row_len", "fixed_len", "chunk_steps", "smem_bytes"):
-        getattr(lib, f"fused_mc_{fn}").restype = ctypes.c_int
+                               "KCTRL": int(ctrl), "KBLOCK": BLOCK}, ENTRIES)
     lay = _layout(n, p, tv, ctrl)
     if (lib.fused_mc_row_len(), lib.fused_mc_fixed_len()) != (lay["row"], lay["fixed"]):
         raise RuntimeError("csrc/fused_mc.cu Layout disagrees with _layout")
     return lib
-
-
-def _launch(fn, device: torch.device, *args) -> int:
-    """`fn(*args, stream)`, a C launch function, on `device`'s current
-    stream; the device is made current only if it is not already (the
-    context switch would cost every call several microseconds)."""
-    current = torch._C._cuda_getDevice()
-    index = current if device.index is None else device.index
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if index == current:
-        return fn(*args, stream)
-    with torch.cuda.device(index):
-        return fn(*args, stream)
 
 
 def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
@@ -303,12 +284,9 @@ def _partials_cuda(rows, fixed_host: np.ndarray, n, p, tv, ctrl, samples,
     steps = rows.shape[0]
     out = torch.empty((_blocks(samples), 2 + 2 * n, steps),
                       dtype=torch.float32, device=rows.device)
-    err = _launch(lib.fused_mc_launch, rows.device, rows.data_ptr(),
+    _build.launch(launches, "fused_mc", lib.fused_mc_launch, rows.device, rows.data_ptr(),
                   fixed_host.ctypes.data, philox.seed_bits(seed), steps,
                   samples, member_offset, int(fast_rng), out.data_ptr())
-    if err:
-        raise RuntimeError(f"fused_mc kernel launch failed: CUDA error {err}")
-    launches["fused_mc"] += 1
     return out
 
 
@@ -435,16 +413,7 @@ def load_sample_normals():
     """Build (at first use) and load K2; sets its persistent grids (the
     occupancy API's blocks per SM times the SMs of the current
     device)."""
-    from . import _build
-
-    lib = _build.load(K2_SOURCE, {})
-    lib.sample_normals_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint64, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.philox_key_schedule.argtypes = [ctypes.c_uint64, ctypes.c_void_p]
-    lib.philox_key_schedule.restype = None
-    for fn in ("launch", "init", "grid", "threads"):
-        getattr(lib, f"sample_normals_{fn}").restype = ctypes.c_int
+    lib = _build.load(K2_SOURCE, {}, K2_ENTRIES, void=("philox_key_schedule",))
     err = lib.sample_normals_init()
     if err:
         raise RuntimeError(f"sample_normals grid set-up failed: CUDA error {err}")
@@ -484,8 +453,6 @@ def sample_normals(count: int, seed: int, generator: str = "box_muller",
         raise ValueError(f"no sample_normals path for device {device}")
     launch = load_sample_normals().sample_normals_launch
     out = torch.empty(count, dtype=torch.float32, device=device)
-    err = _launch(launch, device, out.data_ptr(), count, philox.seed_bits(seed), int(fast))
-    if err:
-        raise RuntimeError(f"sample_normals kernel launch failed: CUDA error {err}")
-    launches["sample_normals"] += 1
+    _build.launch(launches, "sample_normals", launch, device, out.data_ptr(), count,
+                  philox.seed_bits(seed), int(fast))
     return out

@@ -28,10 +28,9 @@ import functools
 
 import torch
 
+from .. import profiling
 from ..dynamics import constants as c
-from . import scan
-from .fused_imm import _on_card
-from .fused_mc import _launch
+from . import _build, scan
 
 SOURCE = "fused_od.cu"
 MAX_STATIONS = 8  # csrc/fused_od.cu:MAX_S, the stations its parameter block holds
@@ -52,13 +51,14 @@ def param_len(stations: int) -> int:
     return sum(n for _, n in PARAM_PARTS) + 3 * stations
 
 
-#: Kernel launches since the last `reset_launches()`.
-launches = {"fused_od": 0}
+_P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: The kernel's C entries and their argument types (`_build.load`).
+ENTRIES = {"fused_od_launch": [_P] * 6 + [_LL] * 6 + [_INT] * 3 + [_P] * 12,
+           "fused_od_read_clocks": [_P], "fused_od_param_len": [_INT],
+           "fused_od_max_stations": []}
 
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+#: Kernel launches since the last `profiling.reset_counters()`.
+launches = profiling.counter_group("fused_od.launches", "fused_od")
 
 
 def takes(x0, p0, r, q, obs, has_meas, stations, *, truth: bool, method: str, degree: int,
@@ -80,7 +80,7 @@ def takes(x0, p0, r, q, obs, has_meas, stations, *, truth: bool, method: str, de
     if not 1 <= stations.latitude.shape[0] <= MAX_STATIONS:
         return False
     floats = (x0, p0, r, q, obs) + tuple(stations)
-    if not _on_card(floats + (has_meas,)) or any(a.dtype != torch.float64 for a in floats):
+    if not _build.on_card(floats + (has_meas,)) or any(a.dtype != torch.float64 for a in floats):
         return False
     return not scan.needs_autograd(floats)
 
@@ -89,16 +89,7 @@ def takes(x0, p0, r, q, obs, has_meas, stations, *, truth: bool, method: str, de
 def load(clocks: bool = False):
     """Build (at first use) and load the kernel, or its diagnostic copy
     that keeps clock64 per phase (`read_clocks`)."""
-    from . import _build
-
-    lib = _build.load(SOURCE, {"FUSED_OD_CLOCKS": int(clocks)})
-    lib.fused_od_launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6
-                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12)
-    lib.fused_od_read_clocks.argtypes = [ctypes.c_void_p]
-    lib.fused_od_param_len.argtypes = [ctypes.c_int]
-    for fn in (lib.fused_od_launch, lib.fused_od_param_len, lib.fused_od_max_stations,
-               lib.fused_od_read_clocks):
-        fn.restype = ctypes.c_int
+    lib = _build.load(SOURCE, {"FUSED_OD_CLOCKS": int(clocks)}, ENTRIES)
     if (lib.fused_od_max_stations() != MAX_STATIONS
             or any(lib.fused_od_param_len(n) != param_len(n) for n in (1, MAX_STATIONS))):
         raise RuntimeError("csrc/fused_od.cu Plan disagrees with ops/fused_od.py")
@@ -181,11 +172,7 @@ def run(params, x0, obs, station_idx, has_meas, trig, stations: int, *, clocks: 
     lib = load(clocks)
     outs = [torch.empty((t, k) + shape, dtype=torch.float64, device=device)
             for shape in FIELDS.values()]
-    err = _launch(lib.fused_od_launch, device, params.data_ptr(), x0.data_ptr(),
-                  obs.data_ptr(), idx.data_ptr(), has.data_ptr(), trig.data_ptr(), 2 * obj, 2,
-                  obj, 1, obj, 1,
-                  t, k, stations, *(a.data_ptr() for a in outs))
-    if err:
-        raise RuntimeError(f"fused_od kernel launch failed: CUDA error {err}")
-    launches["fused_od"] += 1
+    _build.launch(launches, "fused_od", lib.fused_od_launch, device, params.data_ptr(),
+                  x0.data_ptr(), obs.data_ptr(), idx.data_ptr(), has.data_ptr(), trig.data_ptr(),
+                  2 * obj, 2, obj, 1, obj, 1, t, k, stations, *(a.data_ptr() for a in outs))
     return outs

@@ -29,14 +29,9 @@ from .. import profiling
 
 Elems = Tuple[torch.Tensor, ...]
 
-#: Since the last `reset_counts()`: graphs captured, graph replays, and
-#: plain-loop steps on a card.
-counts = {"captures": 0, "replays": 0, "plain_steps": 0}
-
-
-def reset_counts() -> None:
-    for name in counts:
-        counts[name] = 0
+#: Since the last `profiling.reset_counters()`: graphs captured, graph
+#: replays, and plain-loop steps on a card.
+counts = profiling.counter_group("scan", "captures", "replays", "plain_steps")
 
 
 def scan(step: Callable, carry, xs, length: int = None, *, reverse: bool = False,

@@ -6,19 +6,9 @@ JSON, viewable in Perfetto or TensorBoard's profiler plugin) in place of
 program's own spans and counters, and a watchdog against a device that
 never comes up.
 
-Spans.  The port marks its layer boundaries with `span(name)`: a
-Monte-Carlo study (`fused_mc.forward`, `fused_mc.launch`, `fused_mc.pool`)
-and its set-up (`fused_mc.path`, `fused_mc.fixed_host`, `build.load`,
-`model.van_loan`, `model.vanilla_new`, `model.imm_new`), each phase of a
-scan (`scan.warmup`, `scan.capture`, `scan.replay`, `scan.plain`), the
-IMM step's phases (`imm.mix`, `imm.modes`, `imm.posterior`, `imm.match`),
-the fused IMM bank kernel's host path (`imm.fused`), the SRIF orbit
-determination's host work before and after its scan (`od.setup`: the
-inputs, `srif.new` and the staged schedule, or on the fused path the
-kernel's parameter block and Earth angle instead; `od.outputs`: the outputs
-reordered object-major and the `ODResult`) and the fused OD kernel's
-host path (`od.fused`: the checks, the outputs, the launch and the
-`ODResult`).
+Spans.  The port marks its layer boundaries with `span(name)`; each
+module's docstring names its spans, and PERF.md's table of spans and
+counters gathers them with the metric that reads each.
 Spans are off unless `enable(True)` was called or a torch profiler is
 recording.  Off, `span` returns one shared no-op context: it reads no
 clock and calls nothing of the profiler.  On, a span appends
@@ -34,17 +24,16 @@ Operator use: open a `profiling.trace` (spans come on with it) to see
 which layer an idle gap on the card belongs to, and call `enable(True)`
 before building the program's objects to time their set-up too.
 
-Counters.  `counters()` gathers the program's always-on counters under
-dotted names: `scan.captures`, `scan.replays`, `scan.plain_steps`
-(`ops.scan.counts`), `fused_mc.launches.<kernel>`
-(`ops.fused_mc.launches`), `fused_imm.launches.fused_imm`
-(`ops.fused_imm.launches`), `fused_od.launches.fused_od`
-(`ops.fused_od.launches`: one a fused `run_srif_od`), `od.runs` and
-`od.object_steps`
-(`od.counts`: `run_srif_od` calls and the K x T object-steps they
-filtered, known on the host).  Host syncs and allocations are not counted:
-the profiler records the CUDA runtime calls (`cudaStreamSynchronize`,
-`cudaMalloc` ...) inside the spans.
+Counters.  A module that counts registers its group of always-on
+counters at import (`counter_group`): a dict of integers, each 0, that
+the module moves itself and that stays its own (`ops.scan.counts`,
+`od.counts`, each kernel wrapper's `launches`).  `counters()` reads
+every group under dotted names (`<group>.<counter>`) and
+`reset_counters()` sets all of them to 0.  This module imports nothing
+of the program: what counts is the counting module's to say.  Host
+syncs and allocations are not counted: the profiler records the CUDA
+runtime calls (`cudaStreamSynchronize`, `cudaMalloc` ...) inside the
+spans.
 """
 
 from __future__ import annotations
@@ -69,6 +58,7 @@ _ring = collections.deque(maxlen=RING)
 _index = itertools.count()
 _open = threading.local()  # .stack: indices of this thread's open spans
 _OFF = contextlib.nullcontext()
+_groups = {}  # group name -> its counters (`counter_group`)
 
 
 class Span(NamedTuple):
@@ -132,17 +122,22 @@ def reset() -> None:
     _ring.clear()
 
 
-def counters() -> dict:
-    """One flat snapshot of the program's counters, by dotted name."""
-    from . import od
-    from .ops import fused_imm, fused_mc, fused_od, scan
+def counter_group(group: str, *names: str) -> dict:
+    """Register the counters `<group>.<name>`, each 0, and return their
+    dict, which the caller moves (see the module docstring)."""
+    return _groups.setdefault(group, dict.fromkeys(names, 0))
 
-    out = {f"scan.{k}": v for k, v in scan.counts.items()}
-    out.update({f"fused_mc.launches.{k}": v for k, v in fused_mc.launches.items()})
-    out.update({f"fused_imm.launches.{k}": v for k, v in fused_imm.launches.items()})
-    out.update({f"fused_od.launches.{k}": v for k, v in fused_od.launches.items()})
-    out.update({f"od.{k}": v for k, v in od.counts.items()})
-    return out
+
+def counters() -> dict:
+    """One flat snapshot of every registered counter, by dotted name."""
+    return {f"{group}.{k}": v for group, d in _groups.items() for k, v in d.items()}
+
+
+def reset_counters() -> None:
+    """Set every registered counter to 0."""
+    for d in _groups.values():
+        for k in d:
+            d[k] = 0
 
 
 @contextlib.contextmanager

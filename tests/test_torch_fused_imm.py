@@ -29,7 +29,7 @@ import torch
 
 from gokalman_tpu_torch import c2d, noise, profiling
 from gokalman_tpu_torch.filters import imm, vanilla
-from gokalman_tpu_torch.ops import bank, fused_imm, scan
+from gokalman_tpu_torch.ops import _build, bank, fused_imm, scan
 
 F32 = torch.float32
 T, B = 12, 5
@@ -88,7 +88,7 @@ def test_dispatch_keeps_the_scan_path(case, monkeypatch):
     """Each condition the kernel needs, alone unmet, keeps `imm.run` on the
     scan path: on the CPU as such, every other case as if on a card."""
     if case != "cpu":
-        monkeypatch.setattr(fused_imm, "_on_card", lambda tensors: True)
+        monkeypatch.setattr(_build, "on_card", lambda tensors: True)
 
     def launch(*args):
         raise AssertionError("the fused path was taken")
@@ -96,7 +96,7 @@ def test_dispatch_keeps_the_scan_path(case, monkeypatch):
     monkeypatch.setattr(fused_imm, "run", launch)
     model, st, ys, controls, masks, graph = _bank_inputs(case)
     assert not fused_imm.takes(model, st, ys, controls, masks, graph)
-    fused_imm.reset_launches()
+    profiling.reset_counters()
     final, est = imm.run(model, st, ys, controls, masks, graph=graph)
     assert est.state.shape[0] == T and est.mode_covariances.shape[0] == T
     assert fused_imm.launches["fused_imm"] == 0
@@ -105,7 +105,7 @@ def test_dispatch_keeps_the_scan_path(case, monkeypatch):
 def test_dispatch_takes_the_kernel_when_every_condition_holds(monkeypatch):
     """The same bank with every condition met, as if on a card, goes to the
     kernel's wrapper with the model's stacked leaves and the prior."""
-    monkeypatch.setattr(fused_imm, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(_build, "on_card", lambda tensors: True)
     model, st, ys, controls, masks, graph = _bank_inputs("none")
     assert fused_imm.takes(model, st, ys, controls, masks, graph)
     seen = {}
@@ -128,7 +128,7 @@ def test_cpu_bank_counts_no_launch():
     equals its targets run one at a time."""
     model, st = cv_imm(1, [0.02, 2.0], [0.5 * np.eye(1)] * 2)
     ys = tracks(T, B, 1, 1)
-    fused_imm.reset_launches()
+    profiling.reset_counters()
     final, est = imm.run(model, bank.tile(st, B), ys)
     assert profiling.counters()["fused_imm.launches.fused_imm"] == 0
     solo_final, solo = imm.run(model, st, ys[:, 2])

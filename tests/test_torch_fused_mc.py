@@ -23,7 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gokalman_tpu import noise as jnoise
 from gokalman_tpu.filters import vanilla as jvanilla
 from gokalman_tpu.ops import pallas_mc
-from gokalman_tpu_torch import c2d, convert, noise
+from gokalman_tpu_torch import c2d, convert, noise, profiling
 from gokalman_tpu_torch.filters import vanilla
 from gokalman_tpu_torch.ops import ensemble, fused_mc, philox
 from gokalman_tpu_torch.workloads import jerkcar
@@ -348,7 +348,7 @@ def test_fused_cpu_awgn_gates_ragged(fast_rng):
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
-    fused_mc.reset_launches()
+    profiling.reset_counters()
     tm, ts = _cv6_port()
     mod = fused_mc.MonteCarloChiSquare(tm, ts, 8)
     out = mod(300, 1)

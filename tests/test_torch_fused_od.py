@@ -40,7 +40,7 @@ import torch
 from gokalman_tpu_torch import noise, od, profiling
 from gokalman_tpu_torch.dynamics import stations
 from gokalman_tpu_torch.dynamics.propagate import MeasurementSet
-from gokalman_tpu_torch.ops import fused_od, scan
+from gokalman_tpu_torch.ops import _build, fused_od, scan
 from h100_bench.reference import od as ref_od
 
 F64 = torch.float64
@@ -100,14 +100,14 @@ def test_dispatch_keeps_the_scan_path(case, monkeypatch):
     """Each condition the kernel needs, alone unmet, keeps `run_srif_od` on
     the scan path: on the CPU as such, every other case as if on a card."""
     if case != "cpu":
-        monkeypatch.setattr(fused_od, "_on_card", lambda tensors: True)
+        monkeypatch.setattr(_build, "on_card", lambda tensors: True)
 
     def launch(*args, **kwargs):
         raise AssertionError("the fused path was taken")
 
     monkeypatch.setattr(fused_od, "run", launch)
     cfg, sc = scene(3, 6)
-    fused_od.reset_launches()
+    profiling.reset_counters()
     res = fit(cfg, sc, **_case_args(case, sc))
     assert res.est_states.shape == (3, 6, 6) and res.estimates.r.shape == (3, 6, 6, 6)
     assert fused_od.launches["fused_od"] == 0
@@ -118,7 +118,7 @@ def test_dispatch_takes_the_kernel_when_every_condition_holds(shared, monkeypatc
     """The benchmark cell's call, as if on a card, goes to the kernel's wrapper
     with the parameter block, the reference states and the schedule as
     given (no time-major staging); a shared schedule goes as [T, ...]."""
-    monkeypatch.setattr(fused_od, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(_build, "on_card", lambda tensors: True)
     cfg, sc = scene(3, 6)
     if shared:
         sc = dict(sc, obs=sc["obs"][0], has_meas=sc["has_meas"][0],
@@ -157,7 +157,7 @@ def test_cpu_run_counts_no_launch():
     """A CPU catalog runs the scan path: the counter stays at 0 and the
     spans are the scan path's."""
     cfg, sc = scene(2, 4)
-    fused_od.reset_launches()
+    profiling.reset_counters()
     profiling.reset()
     profiling.enable(True)
     try:
@@ -226,7 +226,7 @@ def test_wrapper_checks_raise_before_any_launch(bad, monkeypatch):
 
     monkeypatch.setattr(fused_od, "load", load)
     args = _wrapper_args(bad)
-    fused_od.reset_launches()
+    profiling.reset_counters()
     with pytest.raises(ValueError):
         fused_od.run(args.pop("params"), args.pop("x0"), args.pop("obs"),
                      args.pop("station_idx"), args.pop("has_meas"), args.pop("trig"),

@@ -217,7 +217,7 @@ def _schedule(k=3, t=5, **shapes):
                             torch.zeros(3, 5).long())),  # htildes of the wrong shape
 ])
 def test_a_wrong_schedule_raises_before_any_device_work(x0_shape, meas):
-    od.reset_counts()
+    profiling.reset_counters()
     profiling.reset()
     profiling.enable(True)
     try:
@@ -234,7 +234,7 @@ def test_a_wrong_schedule_raises_before_any_device_work(x0_shape, meas):
 def test_spans_and_counters(on):
     cfg = config()
     sc = ref_od.scene(cfg, torch.tensor(SLOTS[:2]), 4, SEED, "cpu")
-    od.reset_counts()
+    profiling.reset_counters()
     profiling.reset()
     profiling.enable(on)
     try:

@@ -209,7 +209,7 @@ def fake_card(monkeypatch):
 @pytest.mark.parametrize("graph", [True, False])
 def test_scan_counts_and_phases_on_the_card(fake_card, graph):
     model, state, ys = _imm_bank()
-    scan_mod.reset_counts()
+    profiling.reset_counters()
     before = profiling.counters()
     profiling.enable(True)
     with torch.no_grad():
@@ -232,7 +232,7 @@ def test_scan_counts_and_phases_on_the_card(fake_card, graph):
         assert [n for n in names if n.startswith("scan.")] == ["scan.plain"]
     assert scan_mod.counts == {"captures": int(graph), "replays": 12 * graph,
                                "plain_steps": 12 * (not graph)}
-    scan_mod.reset_counts()
+    profiling.reset_counters()
     assert set(scan_mod.counts.values()) == {0}
 
 
@@ -242,6 +242,6 @@ def test_counters_gather_every_counter_by_dotted_name():
                         "fused_mc.launches.fused_mc", "fused_mc.launches.sample_normals",
                         "fused_imm.launches.fused_imm", "fused_od.launches.fused_od", "od.runs",
                         "od.object_steps"}
-    scan_mod.reset_counts()
+    profiling.reset_counters()
     _run_scan()  # CPU tensors: no counter moves
     assert profiling.counters()["scan.plain_steps"] == 0

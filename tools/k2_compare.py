@@ -19,7 +19,7 @@ generators:
   and per piece of its launch path, each piece timed alone: with the
   round keys built by numpy (`philox.key_schedule`, a `torch.cuda.device`
   context, `torch.cuda.current_stream()`) or in C (the current-device
-  check and the raw stream of `ops.fused_mc._launch`), whichever the
+  check and the raw stream of `ops._build.launch`), whichever the
   checkout has.
 
 It prints one line per run and metric, the card's name and power limit,
