@@ -2786,6 +2786,43 @@ def phase_imm_fused(gt, torch, device, card):
 
 OD_FUSED_OBJECTS, OD_FUSED_STEPS = 1_024, 5_120  # the od_arc.srif cell's request
 OD_FUSED_ROUNDS = 5  # timed calls after a warm-up
+#: An earlier commit's kernel, unpacked with `git archive <commit> | tar -x
+#: -C build/parent`: where present, `[od_fused]` builds it beside this
+#: tree's and holds the two kernels' outputs bit for bit.
+OD_PARENT_KERNEL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "parent",
+                                "gokalman_tpu_torch", "csrc", "fused_od.cu")
+
+
+def parent_od_outputs(torch, args, groups):
+    """The outputs of OD_PARENT_KERNEL on `ops.fused_od.run`'s arguments
+    `args` (per-object schedule), as that kernel's `fused_od_launch`
+    declares them (`groups` passed where it takes a layout), or None where
+    no earlier kernel was unpacked."""
+    import ctypes
+
+    from gokalman_tpu_torch.ops import _build, fused_od
+
+    if not os.path.exists(OD_PARENT_KERNEL):
+        return None
+    text = open(OD_PARENT_KERNEL).read()
+    decl = re.search(r'extern "C" int fused_od_launch\(([^)]*)\)', text).group(1)
+    names = [p.strip().rsplit(" ", 1)[-1].lstrip("*") for p in decl.split(",")]
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+    argtypes = [ctypes.c_void_p if "*" in p else kinds[p.strip().rsplit(" ", 1)[0]]
+                for p in decl.split(",")]
+    lib = _build.load(OD_PARENT_KERNEL, {"FUSED_OD_CLOCKS": 0}, {"fused_od_launch": argtypes})
+    params, x0, obs, station_idx, has_meas, trig, stations = args
+    k, t = has_meas.shape
+    idx = station_idx.to(torch.int64).contiguous()
+    has = has_meas.contiguous().view(torch.uint8)
+    outs = [torch.empty((t, k) + shape, dtype=torch.float64, device=x0.device)
+            for shape in fused_od.FIELDS.values()]
+    layout = [groups] if "groups" in names else []
+    _build.launch({"parent": 0}, "parent", lib.fused_od_launch, x0.device, params.data_ptr(),
+                  x0.data_ptr(), obs.contiguous().data_ptr(), idx.data_ptr(), has.data_ptr(),
+                  trig.data_ptr(), 2 * t, 2, t, 1, t, 1, t, k, stations, *layout,
+                  *(a.data_ptr() for a in outs))
+    return outs
 
 
 def phase_od_fused(gt, torch, device, card):
@@ -2801,10 +2838,15 @@ def phase_od_fused(gt, torch, device, card):
     OD_FUSED_ROUNDS), the scan path's CUDA-graph replay of the same call
     (`fused_od.takes` patched to refuse; one call, capture included, host
     clock) with the widest gap of every field from it over the field's
-    max-abs, and the clock64 split per step of lane 0 of each warp of
-    block 0 (the diagnostic build, `ops.fused_od.CLOCKS`): RK4, Φ⁻¹,
+    max-abs, and the clock64 split per step of lane 0 of warp 0 of each
+    block of cluster 0 (the diagnostic build, `ops.fused_od.CLOCKS`): RK4, Φ⁻¹,
     geometry, time update, measurement update, read-outs, stores, and
-    each warp's wait.  Returns the numbers of the kernels line."""
+    each stage's waits on its input's `full` barrier and on its mover
+    warp, with the cluster layout (`fused_od.cluster_plan`: warps a
+    block, clusters, waves) and the `fused_od.plan` counters of the call;
+    where OD_PARENT_KERNEL was unpacked, that earlier kernel's outputs on
+    the same arguments against this one's, bit for bit.  Returns the
+    numbers of the kernels line."""
     from gokalman_tpu_torch.dynamics import stations
     from gokalman_tpu_torch.dynamics.propagate import MeasurementSet
     from gokalman_tpu_torch.ops import _build, fused_od
@@ -2834,12 +2876,36 @@ def phase_od_fused(gt, torch, device, card):
     ptxas = " | ".join(ln.strip() for ln in rec["ptxas"].splitlines()
                        if "registers" in ln or "spill" in ln)
     gt.profiling.reset_counters()
-    res = call()
+    run, seen = fused_od.run, []
+    fused_od.run = lambda *args, **kwargs: seen.append(args) or run(*args, **kwargs)
+    try:
+        res = call()
+    finally:
+        fused_od.run = run
     torch.cuda.synchronize()
     moved = {k: v for k, v in gt.profiling.counters().items() if v}
     launches = moved.get("fused_od.launches.fused_od", 0)  # the main path's call alone
     check(launches == 1 and not any(k.startswith("scan.") for k in moved),
           "[od_fused] run_srif_od took another path than one launch of the kernel")
+    capacity = fused_od.capacity(torch.cuda.current_device())
+    layout = fused_od.cluster_plan(k, capacity)
+    check(moved.get("fused_od.plan.clusters") == layout.clusters
+          and moved.get("fused_od.plan.extra_waves", 0) == layout.waves - 1,
+          f"[od_fused] plan counters {moved} against {layout}")
+    parent = parent_od_outputs(torch, seen[0], layout.groups)
+    if parent is None:
+        parent_equal = "not checked (no earlier kernel under build/parent)"
+    else:
+        torch.cuda.synchronize()
+        mine = {"est_states": res.est_states, "deviations": res.deviations,
+                "covariances": res.covariances, "innovations": res.innovations,
+                "ref_states": res.ref_states, **res.estimates._asdict()}
+        differ = [name for name, a in zip(fused_od.FIELDS, parent)
+                  if not torch.equal(a, mine[name].movedim(0, 1))]
+        check(not differ, f"[od_fused] outputs differ from the earlier kernel's: {differ}")
+        parent_equal = "bit for bit, all 11 fields"
+    checked = parent is not None
+    del parent
     check(bool(torch.isfinite(res.est_states).all() & torch.isfinite(res.covariances).all()),
           "[od_fused] non-finite estimates")
     times = sorted(cuda_ms(call, 1, lambda: None)[0] for _ in range(OD_FUSED_ROUNDS))
@@ -2894,18 +2960,23 @@ def phase_od_fused(gt, torch, device, card):
     kernel = ("not measured (no device events)" if device_ms is None else
               f"{device_ms:.3f} ms device ({100 * bound_ms / device_ms:.3f}% of the "
               f"bound, {100 * all_ms / device_ms:.2f}% of all outputs' bytes)")
-    log(f"[od_fused] K = {k}, T = {steps}, f64 SNC on {card}: ptxas {ptxas}; kernel {kernel}; "
+    log(f"[od_fused] K = {k}, T = {steps}, f64 SNC on {card}: layout {layout.groups} warps a "
+        f"block, {layout.clusters} clusters of four, {layout.waves} wave(s) (resident clusters "
+        f"by warps a block {json.dumps(capacity)}); against the earlier kernel {parent_equal}; "
+        f"ptxas {ptxas}; kernel {kernel}; "
         f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB); "
         f"all outputs {all_bytes / 1e9:.3f} GB, {all_ms:.3f} ms; run_srif_od {call_ms:.3f} ms a "
         f"call (CUDA events, median of {OD_FUSED_ROUNDS}; min {times[0]:.3f}, max "
         f"{times[-1]:.3f}), {k * steps / call_ms * 1e3:.4g} object-steps/s, "
         f"{kernels_a_call:.1f} kernels a call; the scan path's graph replay {replay_ms:.1f} ms "
         f"a call (capture included); widest gaps over max-abs {json.dumps(gaps)}, reference "
-        f"trajectory bit-identical {ref_equal}; clock64 cycles a step (lane 0 of each warp, "
-        f"block 0) {json.dumps(split)}; phase {time.perf_counter() - t_phase:.1f} s host clock")
+        f"trajectory bit-identical {ref_equal}; clock64 cycles a step (lane 0 of warp 0 of each "
+        f"block, cluster 0) {json.dumps(split)}; phase {time.perf_counter() - t_phase:.1f} s host "
+        f"clock")
     return dict(ms=device_ms, call_ms=call_ms, plain_ms=replay_ms, bound_ms=bound_ms,
                 bound_by=bound_by, all_outputs_ms=all_ms, gaps=gaps, clocks=split,
-                max_abs=max(gaps.values()), launches=launches)
+                max_abs=max(gaps.values()), launches=launches, layout=layout._asdict(),
+                parent_equal=checked)
 
 
 def nav_streams(np, rng, steps, dt, landmarks):

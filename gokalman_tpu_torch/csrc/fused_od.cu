@@ -48,37 +48,51 @@
 //    is latency-bound.  One warp doing the whole step, one object a lane,
 //    ran ~21,700 cycles a step against ~6,600 of issue on an H100 (55-58
 //    ms a 1,024 x 5,120 request).  The design shortens the chain:
-//    - Each block holds 32 objects, one lane per object in each of four
-//      warps, and runs the step as a pipeline of four stages, one a warp:
-//      the reference trajectory (RK4 with the STM), its linearization
-//      (Phi^-1 by partial-pivot LU, the station geometry, the whitened
-//      W H~ and W (y - h)), the filter (R_bar = R Phi^-1, both Householder
-//      passes) and the read-outs with the stores.  Only the filter depends
-//      on the filter's state, so in iteration i warp w works on step
-//      i - w; the stages hand over in shared memory (two slots each) and
-//      meet once an iteration on a named barrier.  A step then costs the
-//      longest stage, on four schedulers, rather than their sum: ~11,400
-//      cycles a step, 27.7-28.3 ms a request (two warps, trajectory and
-//      linearization against filter and stores: ~11,500 cycles, 30.5-31.4
-//      ms; all on an H100, in one call).  Every stage runs 1.3-2x slower
-//      beside the other three than alone, which the four streams of the
-//      ~9,000-instruction kernel through the SM's instruction fetch would
-//      explain; the filter's ~10,800 cycles set the pace.
-//    - One object a lane leaves most of the card idle: 1,024 objects are
-//      32 blocks, one an SM, on 32 of the H100's 132 SMs.  The SMs are not
-//      what is short.  The filter stage alone (R_bar, both passes; 1,024 x
-//      5,120, one call) took the same ~6,170 cycles a step, 15.9 ms, at 8
-//      objects a warp over 128 SMs as at 32 over 32, and 22.3 ms (~8,700
-//      cycles) at 16 lanes an object over 128 SMs, a stack column a lane
-//      with the pivot column, sigma and beta broadcast by __shfl_sync, all
-//      three bit-identical: a column's square root, division and broadcast
+//    - The step runs as a pipeline of four stages: the reference trajectory
+//      (RK4 with the STM), its linearization (Phi^-1 by partial-pivot LU,
+//      the station geometry, the whitened W H~ and W (y - h)), the filter
+//      (R_bar = R Phi^-1, both Householder passes) and the read-outs with
+//      the stores.  Only the filter depends on the filter's state, so the
+//      stages work on successive steps at once and a step costs the longest
+//      stage rather than their sum.
+//    - Each stage runs on an SM of its own: a cluster of four blocks, block
+//      rank r on stage r, each of `groups` compute warps of 32 objects, one
+//      object a lane (warp g of every rank on the same objects), and as
+//      many mover warps.  As four warps of one block the stages met on a
+//      named barrier every step, and each ran 1.3-2.2x slower than
+//      alone (1,024 x 5,120, clock64 cycles a step on an H100: trajectory
+//      8,620 against 5,964 alone, linearization 8,244 / 4,491, filter
+//      10,887 / 8,082, read-outs 5,983 / 4,916; ~11,400 a step), which the
+//      four code streams of the ~9,000-instruction kernel through one SM's
+//      instruction fetch would explain.  On an SM of its own each stage
+//      fetches only its own code: ~7,900 cycles a step, the filter's own
+//      ~7,200 and its waits (20.5 ms a request against 31 ms for the
+//      four-warp block, in one call).
+//    - A stage hands its step to the next rank through distributed shared
+//      memory (see `move`): it writes the hand-off into staging in its own
+//      shared memory, and its mover warp copies it into a ring of two slots
+//      in the consumer's, so the wait for remote stores to complete falls
+//      on the mover, off the stage's chain.  A stage waits only on its
+//      input and on its mover having taken the step before.
+//    - Shared memory caps the warps a block: the read-out block holds two
+//      ring slots of B3 (31.7 KB a warp each) and its 44.5 KB output stage
+//      a warp, so 227 KB takes one or two warps (`groups`, a launch
+//      argument; MAX_W).  ops/fused_od.cluster_plan picks the fewest for
+//      which a catalog's clusters are resident at once
+//      (`fused_od_clusters`: 30 clusters of four on an H100 SXM, so 1,024
+//      objects run as 16 clusters of two warps, 1,920 at most in a wave).
+//    - A group of lanes an object is slower: the filter stage alone took
+//      ~6,170 cycles a step (15.9 ms) at one object a lane and 22.3 ms
+//      (~8,700 cycles) at 16 lanes an object over 128 SMs, a stack column a
+//      lane with the pivot column, sigma and beta broadcast by __shfl_sync,
+//      both bit-identical: a column's square root, division and broadcast
 //      come one after another, while one lane overlaps the columns'
 //      independent updates.
 //    - Each lane runs its object's stage fully unrolled in registers.  The
 //      measurement pass touches only row k and the two measurement rows of
 //      each reflection: R_bar is upper triangular, and the full pass leaves
 //      the exact zeros between them as they are.
-//    - The read-out warp keeps one step's output rows of its 32 objects in
+//    - Each read-out warp keeps one step's output rows of its 32 objects in
 //      shared memory (its "stage"), field by field in the output layout,
 //      so each field of a step goes out as one contiguous run of 32 rows
 //      in 16-byte streaming stores, every load of a field before its
@@ -98,15 +112,17 @@
 //      whole 5,120-step arc.  (1 / (s sqrt(s)) for pow(s, -1.5) was 3-8%
 //      faster and lost that.)
 //    FUSED_OD_CLOCKS=1 builds a diagnostic copy that sums clock64 per phase
-//    for lane 0 of each warp of block 0 (`fused_od_read_clocks`).
+//    and per wait for lane 0 of warp 0 (a compute warp) of each block of
+//    cluster 0 (`fused_od_read_clocks`).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int LANES = 32;  // objects a block, one lane each in each of its four warps
+constexpr int LANES = 32;  // objects a warp, one a lane
 constexpr int MAX_S = 8;   // stations the parameter block holds
 
 // The parameter block (ops/fused_od.py:pack_params), doubles: the run's
@@ -457,6 +473,28 @@ __device__ void derive(double* prm, int stations) {
   }
 }
 
+// A lane's row of a hand-off field: its double2 i at p + 2 * LANES * i.
+struct Hand {
+  double* p;
+};
+
+template <int N>
+__device__ __forceinline__ void put(Hand dst, const double* v) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    reinterpret_cast<double2*>(dst.p)[LANES * i] = make_double2(v[2 * i], v[2 * i + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void get(Hand src, double* v) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const double2 e = reinterpret_cast<const double2*>(src.p)[LANES * i];
+    v[2 * i] = e.x;
+    v[2 * i + 1] = e.y;
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void put(double* dst, const double* v) {
 #pragma unroll
@@ -473,9 +511,13 @@ __device__ __forceinline__ void get(const double* src, double* v) {
   }
 }
 
-// The hand-offs between the four stages of the step pipeline, per object,
-// in shared memory: fields of `width` doubles, [32 objects][width] each,
-// two slots (steps of either parity) per hand-off.
+// The hand-offs between the four stages of the step pipeline, per object:
+// fields of `width` doubles, 32 objects' each, in the producer's staging
+// slot and in the consumer's ring of two slots (steps s mod 2), one of
+// each a warp.  In a field the warp's lanes sit side by side a double2 at
+// a time (`Hand`), so each 16-byte warp store into the next block is one
+// contiguous run of 512 bytes (a row a lane, 288 bytes apart, took the
+// filter ~3,000 cycles a step more when it wrote the next block itself).
 //   B1  trajectory -> linearize: Phi, x_ref
 //   B2  linearize -> filter: Phi^-1, W H~, W (y - h), has, and Phi, x_ref,
 //       the measurement passed on
@@ -508,16 +550,43 @@ __host__ __device__ constexpr int b3_off(int f) {
 }
 constexpr int B1 = b1_off(NB1), B2 = b2_off(NB2), B3 = b3_off(NB3);  // one slot each
 constexpr int STATE = LANES * 42;  // the filter's own (R, b) of each object
-// Shared memory after the parameters: the stage, B1, B2, B3 (two slots
-// each), the filter's state.
-constexpr int SMEM = Plan::SHARED + STAGE + 2 * (B1 + B2 + B3) + STATE;
 
-// Phase clocks of the diagnostic build, lane 0 of each warp of block 0:
-// RK4 with the STM, wait (warp 0); Phi^-1, geometry, wait (warp 1); time
-// update, measurement update, wait (warp 2); read-outs, stores, wait
-// (warp 3); the whole loop.
-constexpr int NCLOCKS = 12;
+// A cluster of four blocks, block rank r on stage r, each block `groups`
+// compute warps of 32 objects and as many mover warps.  Every block's
+// shared memory: the parameters, the barriers, then a warp's each of: its
+// input ring (two slots of B1, B2 or B3 in ranks 1-3), its output's
+// staging slot (ranks 0-2), and the filter's state (rank 2) or the output
+// stage (rank 3).  A ring's `full` barriers sit with it, in the consumer;
+// its `empty` ones with the producer's mover, which fills it.
+constexpr int RANKS = 4;
+constexpr int MAX_W = 2;  // compute warps a block: the read-out block's rings hold no more
+constexpr int BARS = Plan::SHARED;
+constexpr int RING = BARS + 4 * MAX_W;  // uint64 full[MAX_W][2], empty[MAX_W][2]
+__host__ __device__ constexpr int in_width(int rank) {
+  return rank == 1 ? B1 : (rank == 2 ? B2 : (rank == 3 ? B3 : 0));
+}
+__host__ __device__ constexpr int out_width(int rank) { return in_width(rank + 1); }
+__host__ __device__ constexpr int block_doubles(int rank, int groups) {
+  return RING + groups * (2 * in_width(rank) + out_width(rank) +
+                          (rank == 2 ? STATE : (rank == 3 ? STAGE : 0)));
+}
+
+// Phase clocks of the diagnostic build, lane 0 of warp 0 (a compute warp)
+// of each block of cluster 0: each stage's waits on its input's `full`
+// barrier and for its mover to have taken the last step out of staging,
+// and its phases; then the read-out block's whole loop.
+enum Clocks {
+  TRAJ_WAIT_EMPTY, TRAJ_RK4,                                      // rank 0
+  LIN_WAIT_FULL, LIN_WAIT_EMPTY, LIN_PHI_INV, LIN_GEOMETRY,       // rank 1
+  FILTER_WAIT_FULL, FILTER_WAIT_EMPTY, FILTER_TIME, FILTER_MEAS,  // rank 2
+  READ_WAIT_FULL, READ_READOUTS, READ_STORES, LOOP,               // rank 3
+  NCLOCKS
+};
 __device__ unsigned long long fused_od_clocks[NCLOCKS];
+__host__ __device__ constexpr int first_clock(int rank) {
+  return rank == 0 ? TRAJ_WAIT_EMPTY
+                   : (rank == 1 ? LIN_WAIT_FULL : (rank == 2 ? FILTER_WAIT_FULL : READ_WAIT_FULL));
+}
 
 template <bool CLOCKS>
 struct Clock {
@@ -536,11 +605,11 @@ struct Clock {
   }
 };
 
-// Warp 0, step s: the reference state x (in registers) one RK4 step on,
+// Rank 0, step s: the reference state x (in registers) one RK4 step on,
 // with its STM.
 template <bool CLOCKS>
 __device__ __forceinline__ void trajectory(const double* prm, double (&x)[6],
-                                           double* const (&b1)[NB1], unsigned mask,
+                                           const Hand (&b1)[NB1], unsigned mask,
                                            Clock<CLOCKS>& clk) {
   double xn[6], phi[6][6];
   rk4_stm(prm, x, xn, phi);
@@ -548,17 +617,17 @@ __device__ __forceinline__ void trajectory(const double* prm, double (&x)[6],
   put<6>(b1[B1_REF], xn);
 #pragma unroll
   for (int i = 0; i < 6; ++i) x[i] = xn[i];
-  clk.tick(0, mask);
+  clk.tick(TRAJ_RK4, mask);
 }
 
-// Warp 1, step s: Phi^-1 (srif._time_update's inv(Phi)) and, where the
+// Rank 1, step s: Phi^-1 (srif._time_update's inv(Phi)) and, where the
 // object has a measurement, the station geometry at the new reference,
 // whitened: W H~, W (y - h(x_ref)).  None of it depends on the filter.
 template <bool CLOCKS>
-__device__ __forceinline__ void linearize(const double* prm, double* const (&b1)[NB1],
+__device__ __forceinline__ void linearize(const double* prm, const Hand (&b1)[NB1],
                                           const double (&cs)[2], const double (&y)[2],
                                           long long sidx, bool has, int stations,
-                                          double* const (&b2)[NB2], unsigned mask,
+                                          const Hand (&b2)[NB2], unsigned mask,
                                           Clock<CLOCKS>& clk) {
   double xn[6];
   get<6>(b1[B1_REF], xn);
@@ -570,7 +639,7 @@ __device__ __forceinline__ void linearize(const double* prm, double* const (&b1)
     phi_inverse(phi, inv);
     put<36>(b2[B2_INV], &inv[0][0]);
   }
-  clk.tick(2, mask);
+  clk.tick(LIN_PHI_INV, mask);
   double meas[2] = {0.0, 0.0}, yw[2] = {0.0, 0.0}, hw[2][6] = {};
   if (has) {
     // The station's ECI state at the step's Earth angle (cos, sin in `cs`).
@@ -617,16 +686,16 @@ __device__ __forceinline__ void linearize(const double* prm, double* const (&b1)
   put<2>(b2[B2_YW], yw);
   put<12>(b2[B2_HW], &hw[0][0]);
   put<2>(b2[B2_HAS], flag);
-  clk.tick(3, mask);
+  clk.tick(LIN_GEOMETRY, mask);
 }
 
-// Warp 2, step s: the filter.  The time update R_bar = R Phi^-1 (R upper
+// Rank 2, step s: the filter.  The time update R_bar = R Phi^-1 (R upper
 // triangular) and Dyer-McReynolds [[R_w, 0 | 0], [-R_bar Gamma, R_bar | b]],
 // then where the object has a measurement the update
 // [[R_bar, b_bar], [W H~, W y]].  Its (R, b) lives in `state`.
 template <bool CLOCKS>
-__device__ __forceinline__ void filter(const double* prm, double* const (&b2)[NB2],
-                                       double* state, double* const (&b3)[NB3], unsigned mask,
+__device__ __forceinline__ void filter(const double* prm, const Hand (&b2)[NB2],
+                                       double* state, const Hand (&b3)[NB3], unsigned mask,
                                        Clock<CLOCKS>& clk) {
   double rb[6][6], b[6];
   {
@@ -668,7 +737,7 @@ __device__ __forceinline__ void filter(const double* prm, double* const (&b2)[NB
     }
   }
   put<36>(b3[B3_PRED], &rb[0][0]);
-  clk.tick(5, mask);
+  clk.tick(FILTER_TIME, mask);
   double flag[2], yw[2];
   get<2>(b2[B2_HAS], flag);
   get<2>(b2[B2_YW], yw);
@@ -697,13 +766,13 @@ __device__ __forceinline__ void filter(const double* prm, double* const (&b2)[NB
     put<6>(b3[B3_REF], xn);
     put<2>(b3[B3_MEAS], meas);
   }
-  clk.tick(6, mask);
+  clk.tick(FILTER_MEAS, mask);
 }
 
-// Warp 3, step s: the read-outs x = R^-1 b, S = R^-1 (upper), P = S S',
+// Rank 3, step s: the read-outs x = R^-1 b, S = R^-1 (upper), P = S S',
 // the estimate x_ref + x, and every field of the step into the stage.
 template <bool CLOCKS>
-__device__ __forceinline__ void readout(double* const (&b3)[NB3], double* const (&row)[NFIELDS],
+__device__ __forceinline__ void readout(const Hand (&b3)[NB3], double* const (&row)[NFIELDS],
                                         unsigned mask, Clock<CLOCKS>& clk) {
   {
     double phi[36], pred[36], yw[2], meas[2];
@@ -761,7 +830,7 @@ __device__ __forceinline__ void readout(double* const (&b3)[NB3], double* const 
   put<6>(row[DEV], dev);
   put<6>(row[EST], est);
   put<36>(row[COV], &p[0][0]);
-  clk.tick(8, mask);
+  clk.tick(READ_READOUTS, mask);
 }
 
 // A full warp's rows of field F from the stage to device memory: every
@@ -778,89 +847,224 @@ __device__ __forceinline__ void flush(const Out& out, size_t first, const double
   for (int i = 0; i < IT; ++i) __stcs(dst + lane + LANES * i, v[i]);
 }
 
-// The four warps meet once an iteration, on named barrier 1.
-__device__ __forceinline__ void step_barrier() { asm volatile("bar.sync 1, 128;" ::: "memory"); }
+// The hand-off of step s from compute warp g of rank r to compute warp g
+// of rank r + 1.  The stage writes it into its staging slot in its own
+// shared memory and arrives on named barrier `filled`; its mover warp
+// loads the slot into registers, arrives on `drained` (the stage may
+// write the next step), then writes the step into slot s mod 2 of the
+// consumer's ring in the next block (16 bytes a lane, each warp store one
+// contiguous 512-byte run) and every lane arrives on that slot's `full`
+// barrier with release semantics at cluster scope.  The consumer waits on
+// `full` and reads the slot locally; once it has filled its own staging,
+// its mover (the read-out warp itself, which has none) frees the slot:
+// every lane arrives on the producer's `empty` barrier of the slot.  So a
+// stage's stores stay local, and the waits for remote operations to
+// complete, which each release implies, fall on the movers.  On an H100
+// (clock64), the filter writing the next block itself cost it ~2,400-3,400
+// cycles a step, its own release to the block before ~1,000, and a bulk
+// copy (cp.async.bulk shared::cta -> shared::cluster) ~5,000 from its
+// start to the consumer's take.
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_addr(bar)), "r"(count)
+               : "memory");
+}
+// Waits until the phase of `parity` has completed (parity 1 of a fresh
+// barrier counts as completed).
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = shared_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+// The lane arrives on the barrier at `bar`'s place in block `rank` of the
+// cluster.
+__device__ __forceinline__ void bar_arrive(uint64_t* bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(shared_addr(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote)
+               : "memory");
+}
+// Named barriers between compute warp g and its mover (64 threads): ids
+// 1 + 2g (`filled`) and 2 + 2g (`drained`); 0 is __syncthreads'.
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory");
+}
 
-// Four warps a block, 32 objects, one lane per object in each; iteration i
-// runs the pipeline's stages on steps i, i - 1, i - 2 and i - 3.
+// Mover warp of rank `rank` - 1, step s: the staging slot `src` (N double2
+// a lane) into the consumer's ring slot `dst` (a pointer into block
+// `rank`), once `empty` says the consumer has read the slot's last step.
+// Past rank 0 it also frees the stage's own input slot of step s in the
+// block before (`upstream`): the stage has read it when it fills staging.
+template <int N>
+__device__ __forceinline__ void move(const double* src, double* dst, int s, int steps, int filled,
+                                     int drained, uint64_t* upstream, uint64_t* empty,
+                                     uint64_t* full, int lane, uint32_t rank) {
+  double2 v[N];
+  pair_sync(filled);
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = reinterpret_cast<const double2*>(src)[lane + LANES * i];
+  if (s + 1 < steps) pair_arrive(drained);
+  if (rank > 1) bar_arrive(upstream, rank - 2);
+  bar_wait(empty, ((s >> 1) & 1) ^ 1);
+#pragma unroll
+  for (int i = 0; i < N; ++i) reinterpret_cast<double2*>(dst)[lane + LANES * i] = v[i];
+  bar_arrive(full, rank);
+}
+
+// One cluster of four blocks runs the step pipeline of `groups` groups of
+// 32 objects, one object a lane: block rank 0 the trajectory, 1 the
+// linearization, 2 the filter, 3 the read-outs and stores, each on an SM
+// of its own.  Compute warp g of a block hands step s to compute warp g of
+// the next rank through its mover (see `move`), so a stage waits only on
+// its input and on its mover having taken the step before.
 template <bool CLOCKS>
-__global__ void __launch_bounds__(4 * LANES, 1)
+__global__ void __cluster_dims__(RANKS, 1, 1) __launch_bounds__(2 * MAX_W * LANES, 1)
 fused_srif_od_kernel(const double* __restrict__ params, In in, int steps, int objects,
                      int stations, Out out) {
+  namespace cg = cooperative_groups;
   extern __shared__ __align__(16) double smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int groups = blockDim.x / (2 * LANES);
   const int warp = threadIdx.x / LANES, lane = threadIdx.x % LANES;
-  for (int e = threadIdx.x; e < Plan::FIXED + 3 * stations; e += 4 * LANES) smem[e] = params[e];
+  const bool mover = warp >= groups;
+  const int group = mover ? warp - groups : warp;
+  for (int e = threadIdx.x; e < Plan::FIXED + 3 * stations; e += blockDim.x) smem[e] = params[e];
   __syncthreads();
-  if (threadIdx.x == 0) derive(smem, stations);
-  __syncthreads();
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem + BARS);
+  uint64_t* const full = bars + 2 * group;              // this group's input ring
+  uint64_t* const empty = bars + 2 * MAX_W + 2 * group;  // the ring it fills in rank + 1
+  if (threadIdx.x == 0) {
+    derive(smem, stations);
+    for (int i = 0; i < 4 * MAX_W; ++i) bar_init(bars + i, LANES);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster.sync();  // every block's parameters derived and barriers set
   const double* prm = smem;
-  double* st = smem + Plan::SHARED;
-  double* const b1_base = st + STAGE;
-  double* const b2_base = b1_base + 2 * B1;
-  double* const b3_base = b2_base + 2 * B2;
-  double* const state = b3_base + 2 * B3 + lane * 42;
-  const int b0 = blockIdx.x * LANES;
+  double* const ring = smem + RING + group * 2 * in_width(rank);
+  double* const staging = smem + RING + groups * 2 * in_width(rank) + group * out_width(rank);
+  const int filled = 1 + 2 * group, drained = 2 + 2 * group;
+  const int b0 = (blockIdx.x / RANKS * groups + group) * LANES;
   const int count = min(LANES, objects - b0);
-  const bool live = lane < count;
-  const unsigned mask = count >= LANES ? 0xffffffffu : (1u << count) - 1u;  // the live lanes
-  const long long k = b0 + (live ? lane : 0);
-  // This lane's rows of each hand-off's slot for step s.
-  auto rows1 = [&](int s, double* (&r)[NB1]) {
-#pragma unroll
-    for (int f = 0; f < NB1; ++f) r[f] = b1_base + (s & 1) * B1 + b1_off(f) + lane * b1_width(f);
-  };
-  auto rows2 = [&](int s, double* (&r)[NB2]) {
-#pragma unroll
-    for (int f = 0; f < NB2; ++f) r[f] = b2_base + (s & 1) * B2 + b2_off(f) + lane * b2_width(f);
-  };
-  auto rows3 = [&](int s, double* (&r)[NB3]) {
-#pragma unroll
-    for (int f = 0; f < NB3; ++f) r[f] = b3_base + (s & 1) * B3 + b3_off(f) + lane * b3_width(f);
-  };
-  double* row[NFIELDS];  // warp 3's rows of the stage
-#pragma unroll
-  for (int f = 0; f < NFIELDS; ++f) row[f] = st + stage_off(f) + lane * width(f);
   Clock<CLOCKS> clk;
   const long long start = CLOCKS ? clock64() : 0;
-  double x[6];
-  if (warp == 0 && live) {
+  if (count > 0 && mover && rank < RANKS - 1) {
+    // This group's ring in the next block.
+    double* const next =
+        cluster.map_shared_rank(smem + RING + group * 2 * out_width(rank), rank + 1);
+    for (int s = 0; s < steps; ++s) {
+      const int d = s & 1;
+      if (rank == 0)
+        move<B1 / (2 * LANES)>(staging, next + d * B1, s, steps, filled, drained, nullptr,
+                               empty + d, full + d, lane, 1);
+      else if (rank == 1)
+        move<B2 / (2 * LANES)>(staging, next + d * B2, s, steps, filled, drained, empty + d,
+                               empty + d, full + d, lane, 2);
+      else
+        move<B3 / (2 * LANES)>(staging, next + d * B3, s, steps, filled, drained, empty + d,
+                               empty + d, full + d, lane, 3);
+    }
+  } else if (count > 0 && !mover) {
+    const bool live = lane < count;
+    const unsigned mask = count >= LANES ? 0xffffffffu : (1u << count) - 1u;  // the live lanes
+    const long long k = b0 + (live ? lane : 0);
+    // Step s's slot of the input ring, once filled.
+    auto take = [&](int s) {
+      bar_wait(full + (s & 1), (s >> 1) & 1);
+      return ring + (s & 1) * in_width(rank);
+    };
+    // The staging slot is free once the mover has taken step s - 1.
+    auto stage = [&](int s) {
+      if (s > 0) pair_sync(drained);
+    };
+    if (rank == 0) {
+      double x[6];
+      if (live) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) x[i] = in.x0[6 * k + i];
-  }
-  if (warp == 2 && live) {
-    double r0[36], b[6] = {};  // b0 = R0 x0 with the deviation x0 = 0
+        for (int i = 0; i < 6; ++i) x[i] = in.x0[6 * k + i];
+      }
+      Hand b1[NB1];
 #pragma unroll
-    for (int i = 0; i < 36; ++i) r0[i] = i % 7 == 0 ? prm[Plan::R0 + i / 7] : 0.0;
-    put<36>(state, r0);
-    put<6>(state + 36, b);
-  }
-  for (int i = 0; i < steps + 3; ++i) {
-    const int s = i - warp;  // the step this warp works on
-    clk.start();
-    if (s >= 0 && s < steps) {
-      if (warp == 0) {
-        double* b1[NB1];
-        rows1(s, b1);
+      for (int f = 0; f < NB1; ++f) b1[f] = {staging + b1_off(f) + 2 * lane};
+      for (int s = 0; s < steps; ++s) {
+        clk.start();
+        stage(s);
+        clk.tick(TRAJ_WAIT_EMPTY, 0xffffffffu);
         if (live) trajectory<CLOCKS>(prm, x, b1, mask, clk);
-      } else if (warp == 1) {
-        double *b1[NB1], *b2[NB2];
-        rows1(s, b1);
-        rows2(s, b2);
+        pair_arrive(filled);
+      }
+    } else if (rank == 1) {
+      Hand b2[NB2];
+#pragma unroll
+      for (int f = 0; f < NB2; ++f) b2[f] = {staging + b2_off(f) + 2 * lane};
+      for (int s = 0; s < steps; ++s) {
         const double y[2] = {__ldg(in.obs + k * in.obs_k + s * in.obs_t),
                              __ldg(in.obs + k * in.obs_k + s * in.obs_t + 1)};
         const double cs[2] = {__ldg(in.trig + 2 * s), __ldg(in.trig + 2 * s + 1)};
         const long long sidx = __ldg(in.idx + k * in.idx_k + s * in.idx_t);
         const bool hs = __ldg(in.has + k * in.has_k + s * in.has_t) != 0;
+        clk.start();
+        double* const src = take(s);
+        clk.tick(LIN_WAIT_FULL, 0xffffffffu);
+        stage(s);
+        clk.tick(LIN_WAIT_EMPTY, 0xffffffffu);
+        Hand b1[NB1];
+#pragma unroll
+        for (int f = 0; f < NB1; ++f) b1[f] = {src + b1_off(f) + 2 * lane};
         if (live) linearize<CLOCKS>(prm, b1, cs, y, sidx, hs, stations, b2, mask, clk);
-      } else if (warp == 2) {
-        double *b2[NB2], *b3[NB3];
-        rows2(s, b2);
-        rows3(s, b3);
+        pair_arrive(filled);  // and the input slot is read: the mover frees it
+      }
+    } else if (rank == 2) {
+      double* const state = smem + RING + groups * (2 * B2 + B3) + group * STATE + lane * 42;
+      if (live) {
+        double r0[36], b[6] = {};  // b0 = R0 x0 with the deviation x0 = 0
+#pragma unroll
+        for (int i = 0; i < 36; ++i) r0[i] = i % 7 == 0 ? prm[Plan::R0 + i / 7] : 0.0;
+        put<36>(state, r0);
+        put<6>(state + 36, b);
+      }
+      Hand b3[NB3];
+#pragma unroll
+      for (int f = 0; f < NB3; ++f) b3[f] = {staging + b3_off(f) + 2 * lane};
+      for (int s = 0; s < steps; ++s) {
+        clk.start();
+        double* const src = take(s);
+        clk.tick(FILTER_WAIT_FULL, 0xffffffffu);
+        stage(s);
+        clk.tick(FILTER_WAIT_EMPTY, 0xffffffffu);
+        Hand b2[NB2];
+#pragma unroll
+        for (int f = 0; f < NB2; ++f) b2[f] = {src + b2_off(f) + 2 * lane};
         if (live) filter<CLOCKS>(prm, b2, state, b3, mask, clk);
-      } else {
-        double* b3[NB3];
-        rows3(s, b3);
+        pair_arrive(filled);  // and the input slot is read: the mover frees it
+      }
+    } else {
+      double* const st = smem + RING + groups * 2 * B3 + group * STAGE;  // this warp's stage
+      double* row[NFIELDS];
+#pragma unroll
+      for (int f = 0; f < NFIELDS; ++f) row[f] = st + stage_off(f) + lane * width(f);
+      for (int s = 0; s < steps; ++s) {
+        clk.start();
+        double* const src = take(s);
+        clk.tick(READ_WAIT_FULL, 0xffffffffu);
+        Hand b3[NB3];
+#pragma unroll
+        for (int f = 0; f < NB3; ++f) b3[f] = {src + b3_off(f) + 2 * lane};
         if (live) readout<CLOCKS>(b3, row, mask, clk);
+        bar_arrive(empty + (s & 1), 2);  // the slot is read: all of it is in the stage
         __syncwarp();
         // The step's rows: each field one contiguous run of `count` rows at
         // row s K + b0, in 16-byte streaming stores.
@@ -881,28 +1085,46 @@ fused_srif_od_kernel(const double* __restrict__ params, In in, int steps, int ob
 #pragma unroll
           for (int f = 0; f < NFIELDS; ++f) {
             const int n2 = count * width(f) / 2;
-            const double2* src = reinterpret_cast<const double2*>(st + stage_off(f));
-            double2* dst = reinterpret_cast<double2*>(out.f[f] + first * width(f));
-            for (int e = lane; e < n2; e += LANES) __stcs(dst + e, src[e]);
+            const double2* src2 = reinterpret_cast<const double2*>(st + stage_off(f));
+            double2* dst2 = reinterpret_cast<double2*>(out.f[f] + first * width(f));
+            for (int e = lane; e < n2; e += LANES) __stcs(dst2 + e, src2[e]);
           }
         }
         __syncwarp();
-        clk.tick(9, 0xffffffffu);
+        clk.tick(READ_STORES, 0xffffffffu);
       }
     }
-    step_barrier();
-    clk.tick(warp == 0 ? 1 : (warp == 1 ? 4 : (warp == 2 ? 7 : 10)), 0xffffffffu);
   }
   if constexpr (CLOCKS) {
-    if (blockIdx.x == 0 && lane == 0) {
-      // Each warp's own phases: [0, 2), [2, 5), [5, 8), [8, 12).
-      const int lo = warp == 0 ? 0 : 3 * warp - 1, hi = warp == 3 ? NCLOCKS : 3 * warp + 2;
-      if (warp == 3) clk.c[NCLOCKS - 1] = clock64() - start;
+    if (blockIdx.x < RANKS && threadIdx.x == 0) {
+      if (rank == RANKS - 1) clk.c[LOOP] = clock64() - start;
+      const int lo = first_clock(rank), hi = rank == RANKS - 1 ? NCLOCKS : first_clock(rank + 1);
 #pragma unroll
       for (int i = 0; i < NCLOCKS; ++i)
         if (i >= lo && i < hi) fused_od_clocks[i] = clk.c[i];
     }
   }
+  cluster.sync();  // no block leaves while a neighbour may still reach its shared memory
+}
+
+// The dynamic shared memory of a launch of `groups` warps a block, into
+// `bytes`: the largest block's (the read-out's), and at least half an SM's
+// so that no two blocks share an SM; 0 where it does not fit on the current
+// device.
+cudaError_t layout(int groups, int& bytes) {
+  bytes = 0;
+  int device = 0, limit = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (e != cudaSuccess || groups < 1 || groups > MAX_W) return e;
+  int most = per_sm / 2;
+  for (int r = 0; r < RANKS; ++r) {
+    const int n = static_cast<int>(sizeof(double)) * block_doubles(r, groups);
+    most = n > most ? n : most;
+  }
+  bytes = most <= limit ? most : 0;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -915,33 +1137,52 @@ fused_srif_od_kernel(const double* __restrict__ params, In in, int steps, int ob
 extern "C" int fused_od_param_len(int stations) { return Plan::FIXED + 3 * stations; }
 extern "C" int fused_od_max_stations() { return MAX_S; }
 
+// How many clusters of `groups` warps a block can be resident at once on
+// the current device (cudaOccupancyMaxActiveClusters at that launch's
+// shared memory), into *clusters; 0 where the rings do not fit.
+extern "C" int fused_od_clusters(int groups, int* clusters) {
+  *clusters = 0;
+  int bytes = 0;
+  cudaError_t e = layout(groups, bytes);
+  if (e != cudaSuccess || bytes == 0) return static_cast<int>(e);
+  auto kernel = fused_srif_od_kernel<FUSED_OD_CLOCKS != 0>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(RANKS);
+  cfg.blockDim = dim3(2 * groups * LANES);
+  cfg.dynamicSmemBytes = bytes;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+}
+
 // Every pointer is a device pointer: params (fused_od_param_len(stations)
 // doubles), x0 [K, 6], the schedule (obs, station index int64, mask uint8)
 // read at k * <field>_k + t * <field>_t, the Earth angle's cos and sin
 // [T, 2], and the eleven outputs [T, K, ...] in `Field` order, each
-// 16-byte aligned.  Four warps a block (the pipeline's stages), 32
-// objects a block.
+// 16-byte aligned.  ceil(K / (32 groups)) clusters of four blocks of
+// `groups` warps (1 to MAX_W; cudaErrorInvalidValue where the rings do not
+// fit).
 extern "C" int fused_od_launch(const double* params, const double* x0, const double* obs,
                                const long long* idx, const uint8_t* has, const double* trig,
                                long long obs_k, long long obs_t, long long idx_k,
                                long long idx_t, long long has_k, long long has_t, int steps,
-                               int objects,
-                               int stations, double* est, double* dev, double* cov,
-                               double* innov, double* ref, double* phi, double* sqinfo,
-                               double* meas, double* obs_dev, double* rk, double* pred,
-                               void* stream) {
+                               int objects, int stations, int groups, double* est, double* dev,
+                               double* cov, double* innov, double* ref, double* phi,
+                               double* sqinfo, double* meas, double* obs_dev, double* rk,
+                               double* pred, void* stream) {
   const In in{x0, obs, idx, has, trig, obs_k, obs_t, idx_k, idx_t, has_k, has_t};
   const Out out{{est, dev, cov, innov, ref, phi, sqinfo, meas, obs_dev, rk, pred}};
-  constexpr int smem = static_cast<int>(sizeof(double)) * SMEM;
+  int bytes = 0;
+  cudaError_t e = layout(groups, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = fused_srif_od_kernel<FUSED_OD_CLOCKS != 0>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((objects + LANES - 1) / LANES);
-  kernel<<<grid, 4 * LANES, smem, static_cast<cudaStream_t>(stream)>>>(params, in, steps, objects,
-                                                                       stations, out);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int per = LANES * groups;
+  const dim3 grid(RANKS * ((objects + per - 1) / per));
+  kernel<<<grid, 2 * per, bytes, static_cast<cudaStream_t>(stream)>>>(params, in, steps,
+                                                                      objects, stations, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,9 +3,10 @@
 `csrc/fused_od.cu:fused_srif_od_kernel` runs every step of every object
 of a float64 SRIF orbit determination with state-noise compensation in
 one launch: the T loop inside the kernel, each object's step a pipeline
-over four warps (trajectory, linearization, filter, read-out and
-stores), its state on chip between steps (the source's note gives the
-design).  It computes `od._srif_body`'s step (RK4 of
+of four stages (trajectory, linearization, filter, read-out and stores),
+each on an SM of its own in a cluster of four blocks that hand steps over
+through distributed shared memory, its state on chip between steps (the
+source's note gives the design).  It computes `od._srif_body`'s step (RK4 of
 two-body + J2 with its STM, the Dyer–McReynolds time update, the range /
 range-rate measurement update, the read-outs) and writes every field
 `run_srif_od` returns, float64, in the scan path's storage, so callers
@@ -19,12 +20,20 @@ no co-propagated truth, `graph=True`, no gradient wanted, at most
 version, which the CPU always takes and `run_srif_od(..., graph=False)`
 gives on the card.  `launches` counts the kernel's launches, one per
 call.
+
+Layout (`cluster_plan`): each block of a cluster holds w warps of 32
+objects, one object a lane.  `capacity` asks the card, once per device,
+how many clusters of each w can be resident at once; a call takes the
+fewest warps a block whose ceil(K / 32w) clusters run in one wave.  `plan`
+counts the clusters launched and the waves beyond the first.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Dict, Mapping, NamedTuple
 
 import torch
 
@@ -34,6 +43,8 @@ from . import _build, scan
 
 SOURCE = "fused_od.cu"
 MAX_STATIONS = 8  # csrc/fused_od.cu:MAX_S, the stations its parameter block holds
+LANES = 32  # objects a warp, one a lane
+GROUPS = (1, 2, 4, 8)  # warps a block the plan may take; the kernel holds up to MAX_W = 2
 
 #: The kernel's outputs in its order: `ODResult`'s and `srif.Estimate`'s
 #: fields with the shape of one object-step.
@@ -53,12 +64,55 @@ def param_len(stations: int) -> int:
 
 _P, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: The kernel's C entries and their argument types (`_build.load`).
-ENTRIES = {"fused_od_launch": [_P] * 6 + [_LL] * 6 + [_INT] * 3 + [_P] * 12,
-           "fused_od_read_clocks": [_P], "fused_od_param_len": [_INT],
-           "fused_od_max_stations": []}
+ENTRIES = {"fused_od_launch": [_P] * 6 + [_LL] * 6 + [_INT] * 4 + [_P] * 12,
+           "fused_od_clusters": [_INT, _P], "fused_od_read_clocks": [_P],
+           "fused_od_param_len": [_INT], "fused_od_max_stations": []}
 
 #: Kernel launches since the last `profiling.reset_counters()`.
 launches = profiling.counter_group("fused_od.launches", "fused_od")
+#: Per launch: the clusters launched and the waves beyond the first.
+plan = profiling.counter_group("fused_od.plan", "clusters", "extra_waves")
+
+
+class Plan(NamedTuple):
+    groups: int    # warps a block, each 32 objects
+    clusters: int  # ceil(K / 32 groups), four blocks each
+    waves: int     # ceil(clusters / resident clusters)
+
+
+def cluster_plan(objects: int, capacity: Mapping[int, int]) -> Plan:
+    """The layout of a catalog of `objects` on a card that holds
+    `capacity[w]` clusters of w warps a block at once (0 or absent: w does
+    not launch): the smallest w of `GROUPS` whose ceil(K / 32w) clusters
+    fit in one wave, else the largest w that launches, in as few waves as
+    it can."""
+    fits = [w for w in GROUPS if capacity.get(w, 0) > 0]
+    if not fits:
+        raise RuntimeError("fused_od: no cluster layout fits this device")
+    for w in fits:
+        clusters = math.ceil(objects / (LANES * w))
+        if clusters <= capacity[w]:
+            return Plan(w, clusters, 1)
+    w = fits[-1]
+    clusters = math.ceil(objects / (LANES * w))
+    return Plan(w, clusters, math.ceil(clusters / capacity[w]))
+
+
+@functools.lru_cache(maxsize=None)
+def capacity(index: int) -> Dict[int, int]:
+    """{w: clusters of w warps a block resident at once} on CUDA device
+    `index` (`cudaOccupancyMaxActiveClusters` at that layout's shared
+    memory; 0 where its rings do not fit), asked once per device."""
+    lib = load()
+    out = {}
+    with torch.cuda.device(index):
+        for w in GROUPS:
+            n = ctypes.c_int(0)
+            err = lib.fused_od_clusters(w, ctypes.addressof(n))
+            if err:
+                raise RuntimeError(f"fused_od occupancy query failed: CUDA error {err}")
+            out[w] = n.value
+    return out
 
 
 def takes(x0, p0, r, q, obs, has_meas, stations, *, truth: bool, method: str, degree: int,
@@ -97,19 +151,24 @@ def load(clocks: bool = False):
 
 
 #: The diagnostic build's phase clocks (`read_clocks`), in its order: per
-#: warp of the step pipeline, its stage's phases and its wait at the step
-#: barrier, then the whole loop.
-CLOCKS = ("trajectory_rk4", "trajectory_wait", "linearize_phi_inv", "linearize_geometry",
-          "linearize_wait", "filter_time_update", "filter_meas_update", "filter_wait",
-          "readout_readouts", "readout_stores", "readout_wait", "loop")
+#: stage of the step pipeline (block rank 0-3 of a cluster), its waits on
+#: its input's `full` barrier and for its mover to have taken the step
+#: before out of staging, and its phases; then the read-out block's whole
+#: loop.
+CLOCKS = ("trajectory_wait_empty", "trajectory_rk4",
+          "linearize_wait_full", "linearize_wait_empty", "linearize_phi_inv",
+          "linearize_geometry",
+          "filter_wait_full", "filter_wait_empty", "filter_time_update", "filter_meas_update",
+          "readout_wait_full", "readout_readouts", "readout_stores", "loop")
 
 
 def read_clocks() -> dict:
     """The diagnostic copy's clock64 sums over its last launch, for lane 0
-    of each warp of block 0, by phase (`CLOCKS`): RK4 with the STM (warp
-    0), Φ⁻¹ and the station geometry (warp 1), the time and measurement
-    updates (warp 2), the read-outs and the stores (warp 3), each warp's
-    wait at the step barrier, and the whole loop."""
+    of warp 0 of each block of cluster 0, by phase (`CLOCKS`): RK4 with
+    the STM (rank 0), Φ⁻¹ and the station geometry (rank 1), the time and
+    measurement updates (rank 2), the read-outs and the stores (rank 3),
+    each stage's waits for a filled input slot and for its mover, and the
+    whole loop."""
     buf = (ctypes.c_ulonglong * len(CLOCKS))()
     err = load(True).fused_od_read_clocks(ctypes.addressof(buf))
     if err:
@@ -145,8 +204,9 @@ def run(params, x0, obs, station_idx, has_meas, trig, stations: int, *, clocks: 
     reference states x0 [K, 6], the schedule, per object (obs [K, T, 2],
     station_idx and has_meas [K, T]) or shared by every object ([T, 2],
     [T]), and the Earth angle's cos and sin `trig` [T, 2] (`earth_angle`),
-    all on one card.  Returns the outputs of `FIELDS`, each
-    [T, K, ...] float64 (time-major, as the scan path stores them)."""
+    all on one card.  The layout is `cluster_plan` of K on the card's
+    `capacity`.  Returns the outputs of `FIELDS`, each [T, K, ...] float64
+    (time-major, as the scan path stores them)."""
     k = x0.shape[0]
     t = has_meas.shape[-1]
     shared = has_meas.dim() == 1
@@ -170,9 +230,14 @@ def run(params, x0, obs, station_idx, has_meas, trig, stations: int, *, clocks: 
     has = has_meas.contiguous().view(torch.uint8)
     obj = 0 if shared else t  # the object stride of idx and has; obs's is twice it
     lib = load(clocks)
+    layout = cluster_plan(k, capacity(torch.cuda.current_device() if device.index is None
+                                      else device.index))
     outs = [torch.empty((t, k) + shape, dtype=torch.float64, device=device)
             for shape in FIELDS.values()]
     _build.launch(launches, "fused_od", lib.fused_od_launch, device, params.data_ptr(),
                   x0.data_ptr(), obs.data_ptr(), idx.data_ptr(), has.data_ptr(), trig.data_ptr(),
-                  2 * obj, 2, obj, 1, obj, 1, t, k, stations, *(a.data_ptr() for a in outs))
+                  2 * obj, 2, obj, 1, obj, 1, t, k, stations, layout.groups,
+                  *(a.data_ptr() for a in outs))
+    plan["clusters"] += layout.clusters
+    plan["extra_waves"] += layout.waves - 1
     return outs

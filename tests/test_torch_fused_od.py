@@ -3,8 +3,11 @@
 On the CPU: `ops.fused_od.takes`, the predicate by which `od.run_srif_od`
 chooses the kernel, one case per condition, each of which keeps the
 `ops.scan` path (the kernel's plain version); the call that goes to the
-kernel when every condition holds; a CPU run counts no launch; the
-parameter block's layout; the wrapper's checks raise before any launch.
+kernel when every condition holds; a CPU run counts no launch and moves
+no `fused_od.plan` counter; the parameter block's layout; the wrapper's
+checks raise before any launch; `cluster_plan`'s layout (warps a block,
+clusters, waves) for catalogs of 1 to 9,000 objects on cards that hold
+given numbers of clusters.
 
 On the card (marker `cuda`, skipped without one; there `python -m
 pytest tests/test_torch_fused_od.py -m cuda`): the fused `run_srif_od`
@@ -17,7 +20,9 @@ the fused run of 64 objects x 600 steps of the benchmark's catalog scene
 on the same inputs, every `ODResult` field and every field of the
 stacked `srif.Estimate`; a catalog of one equals its object's row of the
 catalog, and a shared schedule its per-object expansion, bit for bit;
-one launch a call and no scan.
+one launch a call and no scan; the layouts of two warps a block and of
+one agree bit for bit, and four warps a block, whose rings do not fit in
+an SM's shared memory, is refused before it runs.
 
 Tolerance (card): each field within CARD_GAP of its own max-abs over
 the run.  Both paths compute the same float64 algebra in another order
@@ -168,6 +173,7 @@ def test_cpu_run_counts_no_launch():
     profiling.reset()
     assert names == ["od.setup", "od.outputs"]
     assert profiling.counters()["fused_od.launches.fused_od"] == 0
+    assert fused_od.plan == {"clusters": 0, "extra_waves": 0}
     assert res.est_states.shape == (2, 4, 6)
 
 
@@ -193,6 +199,41 @@ def test_parameter_block_layout():
                                c.EARTH_ROTATION_RATE, c.R_EARTH]
     for part, want in zip(got[4:], (sts.latitude, sts.longitude, sts.altitude)):
         assert torch.equal(part, want)
+
+
+#: Resident clusters by warps a block: what an H100 SXM reads (30 clusters
+#: of four one-block SMs; the rings of four and eight warps do not fit), a
+#: card that would hold 31 at every width, and one where one warp a block
+#: and eight do not launch at all.
+CAPACITIES = {"h100": {1: 30, 2: 30, 4: 0, 8: 0}, "holds_31": {1: 31, 2: 31, 4: 31, 8: 31},
+              "some_refused": {1: 0, 2: 20, 4: 10}}
+#: (capacity, K) -> (warps a block, clusters, waves).
+PLANS = {
+    ("h100", 1): (1, 1, 1), ("h100", 31): (1, 1, 1), ("h100", 32): (1, 1, 1),
+    ("h100", 1024): (2, 16, 1), ("h100", 1056): (2, 17, 1), ("h100", 2048): (2, 32, 2),
+    ("h100", 4096): (2, 64, 3), ("h100", 8192): (2, 128, 5), ("h100", 9000): (2, 141, 5),
+    ("holds_31", 1): (1, 1, 1), ("holds_31", 31): (1, 1, 1), ("holds_31", 32): (1, 1, 1),
+    ("holds_31", 1024): (2, 16, 1), ("holds_31", 1056): (2, 17, 1),
+    ("holds_31", 2048): (4, 16, 1), ("holds_31", 4096): (8, 16, 1),
+    ("holds_31", 8192): (8, 32, 2), ("holds_31", 9000): (8, 36, 2),
+    ("some_refused", 1): (2, 1, 1), ("some_refused", 31): (2, 1, 1),
+    ("some_refused", 32): (2, 1, 1), ("some_refused", 1024): (2, 16, 1),
+    ("some_refused", 1056): (2, 17, 1), ("some_refused", 2048): (4, 16, 2),
+    ("some_refused", 4096): (4, 32, 4), ("some_refused", 8192): (4, 64, 7),
+    ("some_refused", 9000): (4, 71, 8)}
+
+
+@pytest.mark.parametrize("held, objects", sorted(PLANS), ids=[f"{c}-{k}" for c, k in sorted(PLANS)])
+def test_cluster_plan(held, objects):
+    """The fewest warps a block whose clusters are all resident at once,
+    else the widest block that launches, in as few waves as it can."""
+    got = fused_od.cluster_plan(objects, CAPACITIES[held])
+    assert (got.groups, got.clusters, got.waves) == PLANS[held, objects]
+
+
+def test_cluster_plan_refuses_a_card_where_no_layout_fits():
+    with pytest.raises(RuntimeError, match="no cluster layout fits"):
+        fused_od.cluster_plan(64, {1: 0, 2: 0, 4: 0, 8: 0})
 
 
 def _wrapper_args(bad):
@@ -322,3 +363,31 @@ def test_catalog_of_one_and_a_shared_schedule_on_card(card):
         assert torch.equal(one[name][0], res[name][k]), name
         assert torch.equal(solo[name], res[name][k]), name
         assert torch.equal(fused_shared[name], fused_expanded[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [2, 4])
+def test_layouts_agree_bit_for_bit_on_card(card, groups, monkeypatch):
+    """64 objects x 600 steps take one warp a block (two clusters) on the
+    card's own capacity.  Forced to two warps a block (one cluster) by the
+    cached capacity, every field equals the one-warp run bit for bit; four
+    warps a block the card cannot hold (the read-out block's rings and
+    stages exceed its shared memory), so the launch raises and counts
+    nothing."""
+    cfg, sc = scene(64, 600, "cuda")
+    real = fused_od.capacity(torch.cuda.current_device())
+    assert real[1] >= 2 and real[2] >= 1 and real[4] == 0 and real[8] == 0, real
+    profiling.reset_counters()
+    one = fields(fused_fit(cfg, sc))
+    assert fused_od.plan == {"clusters": 2, "extra_waves": 0}
+    monkeypatch.setattr(fused_od, "capacity", lambda index: {groups: 1})
+    profiling.reset_counters()
+    if groups == 4:
+        with pytest.raises(RuntimeError, match="fused_od kernel launch failed"):
+            fit(cfg, sc, device="cuda")
+        assert fused_od.launches["fused_od"] == 0 and fused_od.plan["clusters"] == 0
+        return
+    wide = fields(fused_fit(cfg, sc))
+    assert fused_od.plan == {"clusters": 1, "extra_waves": 0}
+    for name in one:
+        assert torch.equal(wide[name], one[name]), name

@@ -240,7 +240,8 @@ def test_counters_gather_every_counter_by_dotted_name():
     got = profiling.counters()
     assert set(got) == {"scan.captures", "scan.replays", "scan.plain_steps",
                         "fused_mc.launches.fused_mc", "fused_mc.launches.sample_normals",
-                        "fused_imm.launches.fused_imm", "fused_od.launches.fused_od", "od.runs",
+                        "fused_imm.launches.fused_imm", "fused_od.launches.fused_od",
+                        "fused_od.plan.clusters", "fused_od.plan.extra_waves", "od.runs",
                         "od.object_steps"}
     profiling.reset_counters()
     _run_scan()  # CPU tensors: no counter moves
