@@ -16,6 +16,15 @@ so a step never reads the card.  The sort is `torch.argsort(-w,
 stable=True)`, JAX's stable order (the zero-weight padded components
 tie); log-determinants come from Cholesky factors.  `run` is one
 `ops.scan.scan`; a bank is a state with a leading scene axis.
+
+`step`'s phases are `profiling.span`s: `phd.predict`, `phd.update` (the
+Kalman geometry, the likelihoods of every component-candidate pair and
+the updated mixture) and `phd.reduce` (truncation, `gsf.cluster_reduce`
+and the sort); `run` is `phd.run`.  A step replayed from the graph runs
+no Python, so the step's spans record at the scan's warm-up and capture
+only.  `counts` (group `phd`) is moved once a `run` call from shapes
+known on the host: calls, (scene, frame) steps, merge rounds (j_max a
+step whose mixture exceeds j_max) and the components entering the merge.
 """
 
 from __future__ import annotations
@@ -25,13 +34,18 @@ from typing import NamedTuple
 
 import torch
 
-from .. import linalg
+from .. import linalg, profiling
 from .._device import resolve_device
 from ..noise import Noise
 from ..ops.bank import per_target
 from ..ops.scan import scan
 from . import gsf, vanilla
 from .pdaf import logdet_psd
+
+
+#: Since the last `profiling.reset_counters()`: `run` calls, (scene,
+#: frame) steps, merge rounds and the components entering the merge.
+counts = profiling.counter_group("phd", "runs", "scene_frames", "merge_rounds", "components")
 
 
 class Model(NamedTuple):
@@ -152,35 +166,41 @@ def step(model: Model, state: State, candidates, cand_mask):
     m_max = candidates.shape[0]
     mask = cand_mask.bool()
 
-    w_pred, m_pred, p_pred = predict_mixture(kf, state.w, state.m, state.p, model.p_survival,
-                                             model.birth_w, model.birth_m, model.birth_p)
+    with profiling.span("phd.predict"):
+        w_pred, m_pred, p_pred = predict_mixture(kf, state.w, state.m, state.p,
+                                                 model.p_survival, model.birth_w, model.birth_m,
+                                                 model.birth_p)
     jp = w_pred.shape[0]
-    s_all, k_all, p_upd, logdets = geometry(kf, p_pred)
-    diffs = candidates[None] - (m_pred @ kf.h.T)[:, None, :]  # [Jp, m, p]
-    log_q = log_gauss_of(s_all, logdets, diffs)
-    # 1e-300 is 0 in float32, where the log is then -inf: as in JAX.
-    logw_det = torch.log(torch.clamp(model.p_detect * w_pred, min=1e-300))[:, None] + log_q
-    logw_det = torch.where(mask[None, :], logw_det, -math.inf)
-    denom = model.clutter + torch.exp(torch.logsumexp(logw_det, dim=0))  # [m]
-    w_det = torch.where(mask[None, :], torch.exp(logw_det) / denom[None, :], 0.0)
-    m_det = m_pred[:, None, :] + torch.einsum(
-        "inp,imp->imn", k_all, torch.where(mask[None, :, None], diffs, 0.0))
+    with profiling.span("phd.update"):
+        s_all, k_all, p_upd, logdets = geometry(kf, p_pred)
+        diffs = candidates[None] - (m_pred @ kf.h.T)[:, None, :]  # [Jp, m, p]
+        log_q = log_gauss_of(s_all, logdets, diffs)
+        # 1e-300 is 0 in float32, where the log is then -inf: as in JAX.
+        logw_det = torch.log(torch.clamp(model.p_detect * w_pred, min=1e-300))[:, None] + log_q
+        logw_det = torch.where(mask[None, :], logw_det, -math.inf)
+        denom = model.clutter + torch.exp(torch.logsumexp(logw_det, dim=0))  # [m]
+        w_det = torch.where(mask[None, :], torch.exp(logw_det) / denom[None, :], 0.0)
+        m_det = m_pred[:, None, :] + torch.einsum(
+            "inp,imp->imn", k_all, torch.where(mask[None, :, None], diffs, 0.0))
 
-    w_all = torch.cat([(1.0 - model.p_detect) * w_pred, w_det.reshape(-1)])
-    m_all = torch.cat([m_pred, m_det.reshape(jp * m_max, n)], dim=0)
-    p_all = torch.cat([p_pred, p_upd[:, None].expand(jp, m_max, n, n).reshape(jp * m_max, n, n)],
-                      dim=0)
-    if model.adaptive_birth_w > 0.0:
-        # Births from this frame's candidates join after its update.
-        w_ab, m_ab, p_ab = adaptive_births(model, candidates, mask)
-        w_all = torch.cat([w_all, w_ab])
-        m_all = torch.cat([m_all, m_ab], dim=0)
-        p_all = torch.cat([p_all, p_ab], dim=0)
+        w_all = torch.cat([(1.0 - model.p_detect) * w_pred, w_det.reshape(-1)])
+        m_all = torch.cat([m_pred, m_det.reshape(jp * m_max, n)], dim=0)
+        p_all = torch.cat([p_pred,
+                           p_upd[:, None].expand(jp, m_max, n, n).reshape(jp * m_max, n, n)],
+                          dim=0)
+        if model.adaptive_birth_w > 0.0:
+            # Births from this frame's candidates join after its update.
+            w_ab, m_ab, p_ab = adaptive_births(model, candidates, mask)
+            w_all = torch.cat([w_all, w_ab])
+            m_all = torch.cat([m_all, m_ab], dim=0)
+            p_all = torch.cat([p_all, p_ab], dim=0)
 
-    w_all = torch.where(w_all > model.trunc, w_all, 0.0)
-    total = w_all.sum()
-    m_red, p_red, w_red = gsf.cluster_reduce(m_all, p_all, w_all, model.j_max, model.merge_dist)
-    w_red, m_red, p_red = sort_by_weight(w_red, m_red, p_red)
+    with profiling.span("phd.reduce"):
+        w_all = torch.where(w_all > model.trunc, w_all, 0.0)
+        total = w_all.sum()
+        m_red, p_red, w_red = gsf.cluster_reduce(m_all, p_all, w_all, model.j_max,
+                                                 model.merge_dist)
+        w_red, m_red, p_red = sort_by_weight(w_red, m_red, p_red)
     est = Estimate(cardinality=total, weights=w_red, states=m_red, covariances=p_red,
                    n_extracted=(w_red > 0.5).sum(dtype=torch.int32))
     return State(w_red, m_red, p_red, state.k + 1), est
@@ -195,4 +215,16 @@ def run(model: Model, state: State, candidates, cand_masks, *, graph: bool = Tru
     def body(carry, xs):
         return per_target(lambda c, fr: step(model, c, fr[0], fr[1]), bank)(carry, xs)
 
-    return scan(body, state, (candidates, cand_masks), graph=graph)
+    with profiling.span("phd.run"):
+        out = scan(body, state, (candidates, cand_masks), graph=graph)
+    steps = candidates.shape[0] * (state.w.shape[0] if bank else 1)
+    m_max = candidates.shape[-2]
+    # The miss and detection terms of the carried and birth components,
+    # and the adaptive births.
+    components = ((state.w.shape[-1] + model.birth_w.shape[0]) * (1 + m_max)
+                  + (m_max if model.adaptive_birth_w > 0.0 else 0))
+    counts["runs"] += 1
+    counts["scene_frames"] += steps
+    counts["merge_rounds"] += steps * model.j_max if components > model.j_max else 0
+    counts["components"] += steps * components
+    return out

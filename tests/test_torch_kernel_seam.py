@@ -22,7 +22,8 @@ PACKAGE = Path(gokalman_tpu_torch.__file__).parent
 COUNTERS = {"scan.captures", "scan.replays", "scan.plain_steps", "fused_mc.launches.fused_mc",
             "fused_mc.launches.sample_normals", "fused_imm.launches.fused_imm",
             "fused_od.launches.fused_od", "fused_od.plan.clusters", "fused_od.plan.extra_waves",
-            "od.runs", "od.object_steps"}
+            "od.runs", "od.object_steps", "phd.runs", "phd.scene_frames", "phd.merge_rounds",
+            "phd.components"}
 #: Each library's source and the table its wrapper hands `_build.load`.
 TABLES = {"fused_mc.cu": fused_mc.ENTRIES, "sample_normals.cu": fused_mc.K2_ENTRIES,
           "fused_imm.cu": fused_imm.ENTRIES, "fused_od.cu": fused_od.ENTRIES}
@@ -173,14 +174,16 @@ def test_on_card_wants_every_tensor_on_one_cuda_device():
 
 
 def test_reset_counters_zeroes_every_counter():
-    """The eleven counters are registered from import; each is moved
+    """The fifteen counters are registered from import; each is moved
     through its owner's dict, and `reset_counters` sets every one back to
     0."""
     from gokalman_tpu_torch import od
+    from gokalman_tpu_torch.filters import phd
     from gokalman_tpu_torch.ops import scan
 
     assert set(profiling.counters()) == COUNTERS
     owners = {"scan": scan.counts, "od": od.counts, "fused_od.plan": fused_od.plan,
+              "phd": phd.counts,
               **{f"{w}.launches": m.launches for w, m in WRAPPERS.items()}}
     for d in owners.values():
         for k in d:

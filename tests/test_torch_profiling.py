@@ -242,7 +242,8 @@ def test_counters_gather_every_counter_by_dotted_name():
                         "fused_mc.launches.fused_mc", "fused_mc.launches.sample_normals",
                         "fused_imm.launches.fused_imm", "fused_od.launches.fused_od",
                         "fused_od.plan.clusters", "fused_od.plan.extra_waves", "od.runs",
-                        "od.object_steps"}
+                        "od.object_steps", "phd.runs", "phd.scene_frames", "phd.merge_rounds",
+                        "phd.components"}
     profiling.reset_counters()
     _run_scan()  # CPU tensors: no counter moves
     assert profiling.counters()["scan.plain_steps"] == 0

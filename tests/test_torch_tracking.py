@@ -24,8 +24,10 @@ banks of 256 scenes (`pdaf_loss_rate`, ~15 s):
 
 import functools
 import itertools
+import json
 import os
 import sys
+from pathlib import Path
 
 if __name__ == "__main__":  # as a script: the package, and conftest's JAX settings
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -50,6 +52,8 @@ from gokalman_tpu_torch import convert, noise
 from gokalman_tpu_torch.filters import cphd, imm, jpda, pdaf, phd, pmb, tracker, vanilla
 from gokalman_tpu_torch.ops.bank import tile
 from gokalman_tpu_torch.workloads import tracking
+from h100_bench.reference import phd as ref_phd
+from h100_bench.reference.precision import Prec
 
 torch.set_num_threads(1)
 F64 = torch.float64
@@ -188,6 +192,35 @@ def test_run_matches_jax(name, nan_pad):
     _close_tree(got, jax_run(name, 3, nan_pad))
     assert all(bool(torch.isfinite(a).all()) for a in jax.tree_util.tree_leaves(got)
                if a.is_floating_point())
+
+
+def make_phd_vo():
+    """The benchmark's `gmphd_vo` configuration (Vo's linear scenario:
+    four births of weight 0.03, κ 1.5e-5, j_max 100, m_max 128) in both
+    packages, and the configuration."""
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "h100_bench" / "configs"
+                      / "gmphd_vo.json").read_text())
+    f, q, h, r = (a.numpy() for a in ref_phd.matrices(cfg, Prec("f64")))
+    birth = tuple(a.numpy() for a in ref_phd.births(cfg, Prec("f64")))
+    kw = dict(p_survival=cfg["p_survival"], p_detect=cfg["p_detect"],
+              clutter=ref_phd.clutter_density(cfg), j_max=cfg["j_max"], trunc=cfg["trunc"],
+              merge_dist=cfg["merge_dist"])
+    return (jphd.new(f, None, h, jnoise.noiseless(q, r), *birth, **kw),
+            phd.new(f, None, h, noise.noiseless(q, r, **CPU), *birth, **kw, **CPU), cfg)
+
+
+def test_phd_matches_jax_at_the_benchmark_widths():
+    """`phd.run` at the benchmark's widths (j_max 100, four births, m_max
+    128: 104 x 129 = 13,416 components into a 100-round merge a frame),
+    one run of 3 frames of the scenario's generator, equals JAX's at 1e-9."""
+    (jm, js), (tm, ts), cfg = make_phd_vo()
+    z, mask, _ = ref_phd.scenes(cfg, 1, 3, cfg["m_max"], 2026, "cpu")
+    cands, masks = z[:, 0].double().numpy(), mask[:, 0].numpy()
+    want = jax.tree_util.tree_map(np.asarray, jphd.run(jm, js, jnp.asarray(cands),
+                                                       jnp.asarray(masks)))
+    got = phd.run(tm, ts, _t(cands), torch.as_tensor(masks))
+    _close_tree(got, want)
+    assert int(got[1].n_extracted[-1]) >= 2  # the first targets are confirmed
 
 
 # --- PDAF and IMM-PDAF -------------------------------------------------------
