@@ -50,7 +50,10 @@ robust, adaptive and mixture filters in f64 (`[robust]`), the loops on
 `ops.scan.scan` timed replay against eager (`[filters]`), and the IMM
 and Huber banks of 4,096 targets (`[bank]`), and the fused IMM bank
 kernel on the same 4,096 x 1,000 scene beside its bound, the plain path
-and the graph replay it replaced (`[imm_fused]`).  Then bench_nav.py's two
+and the graph replay it replaced (`[imm_fused]`), the fused SRIF OD kernel
+(`[od_fused]`) and the GM-PHD's fused reduce kernel at the gmphd_vo.mc
+cell's shapes, with the components truncation keeps and the clusters
+each step writes (`[phd_fused]`).  Then bench_nav.py's two
 rows (`[nav]`: a fleet of 512 vehicles x 200 IMU steps, f32, through
 the invariant EKF as a bank and its invariant RTS smoother, inside
 bench_nav.py's RMS gates, with steps/s, ms per run, kernels per step,
@@ -151,12 +154,14 @@ REPLACES = {
     "sample_normals": "gokalman_tpu/ops/pallas_mc.py:164",
     "fused_imm": "none: beyond the TPU set (the JAX package leaves the IMM step to XLA)",
     "fused_od": "none: beyond the TPU set (the JAX package leaves the OD step to XLA)",
+    "fused_phd": "none: beyond the TPU set (the JAX package leaves the GM-PHD merge to XLA)",
 }
 SOURCES = {
     "fused_mc": "gokalman_tpu_torch/csrc/fused_mc.cu",
     "sample_normals": "gokalman_tpu_torch/csrc/sample_normals.cu",
     "fused_imm": "gokalman_tpu_torch/csrc/fused_imm.cu",
     "fused_od": "gokalman_tpu_torch/csrc/fused_od.cu",
+    "fused_phd": "gokalman_tpu_torch/csrc/fused_phd.cu",
 }
 # K1 specialisations built and checked: (n, p, tv, ctrl).  The main
 # path's cv6, the jerk-car's tv + control schedule, and the largest
@@ -2979,6 +2984,161 @@ def phase_od_fused(gt, torch, device, card):
                 parent_equal=checked)
 
 
+PHD_RUNS = 128  # the gmphd_vo.mc cell's request: 128 Monte-Carlo runs x the configuration's frames
+PHD_TIMED_FRAMES = (10, 50, 99)  # frames whose terms time the kernel and the plain reduce
+PHD_LAUNCHES = 50  # profiled launches a timed frame
+#: [phd_fused]'s limits on the kernel against the plain reduce on the same
+#: terms, which differ only in summation order: Σw and weights absolute, a
+#: few float32 ulps of a cluster's weight; means absolute, metres and m/s
+#: (tests/test_torch_fused_phd.py MEAN_ABS); covariances relative to
+#: sqrt(P_ii P_jj) (COV_REL there).
+PHD_LIMITS = {"card": 1e-5, "weights": 1e-5, "means": 1e-2, "covariances_rel": 1e-3}
+
+
+def phd_slot_gaps(torch, got, want, weight_abs):
+    """The widest mean gap (absolute), covariance gap (absolute and
+    relative to sqrt(P_ii P_jj)) between each slot of one Estimate and the
+    slot of the other that matches it best among those whose weight lies
+    within `weight_abs`, both ways: slots whose weights lie within
+    rounding of each other may sort either way."""
+    gaps = {"means": 0.0, "covariances": 0.0, "covariances_rel": 0.0}
+    for a, b in ((got, want), (want, got)):
+        d = lambda x: x.double()
+        sd = torch.sqrt(torch.diagonal(d(b.covariances), dim1=-2, dim2=-1))  # [B, J, n]
+        near = (d(a.weights)[:, :, None] - d(b.weights)[:, None, :]).abs() <= weight_abs
+        dm = (d(a.states)[:, :, None] - d(b.states)[:, None, :]).abs().amax(-1)
+        dp = (d(a.covariances)[:, :, None] - d(b.covariances)[:, None, :]).abs()
+        dr = (dp / (sd[:, None, :, :, None] * sd[:, None, :, None, :])).amax((-1, -2))
+        dp = dp.amax((-1, -2))
+        score = torch.where(near, torch.maximum(dm / PHD_LIMITS["means"],
+                                                dr / PHD_LIMITS["covariances_rel"]), math.inf)
+        best = score.argmin(-1, keepdim=True)
+        pick = lambda g: float(torch.take_along_dim(g, best, -1).max())
+        if not bool(near.any(-1).all()):
+            return {k: math.inf for k in gaps}  # a slot with no weight near it
+        for k, g in (("means", dm), ("covariances", dp), ("covariances_rel", dr)):
+            gaps[k] = max(gaps[k], pick(g))
+    return gaps
+
+
+def phase_phd_fused(gt, torch, device, card):
+    """[phd_fused]: the GM-PHD's fused reduce kernel (csrc/fused_phd.cu) at
+    the gmphd_vo.mc cell's shapes (128 runs x 100 frames of Vo's scenario,
+    J_max 100, m_max 128, f32): ptxas's registers and spills (no spill);
+    the components truncation keeps per (run, frame) and the clusters
+    written per step over a whole request, walked frame by frame (the
+    predict and update mapped over the runs, then the kernel); at
+    PHD_TIMED_FRAMES the kernel's device time per launch (torch.profiler,
+    PHD_LAUNCHES launches) beside its bound (the bytes those terms need:
+    the weights, the kept components' means, the distinct covariances, the
+    outputs) and the plain reduce's time on the same terms (truncation,
+    `gsf.cluster_reduce` and the sort mapped over the runs; CUDA events, one
+    call after a warm-up), with the widest gaps between the two, each held
+    to its PHD_LIMITS (slots matched as `phd_slot_gaps` says) and the
+    extracted and filled counts equal; then the fused `phd.run` of the
+    whole request (host clock, the second of two calls), its two launches
+    (warm-up and capture) and `fused_steps`.  Returns the numbers of the
+    kernels line, the widest absolute gap as max_abs."""
+    from gokalman_tpu_torch import linalg
+    from gokalman_tpu_torch.filters import phd
+    from gokalman_tpu_torch.ops import _build, bank, fused_phd
+    from h100_bench.drivers import phd_mc
+    from h100_bench.reference import phd as ref_phd
+
+    t_phase = time.perf_counter()
+    cfg = json.loads(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "h100_bench",
+                                       "configs", "gmphd_vo.json")).read())
+    runs, frames, m_max, j_max = PHD_RUNS, cfg["frames"], cfg["m_max"], cfg["j_max"]
+    model, prior = phd_mc.program_model(cfg, device)
+    z, mask, _ = ref_phd.scenes(cfg, runs, frames, m_max, SEED, device)
+    n = prior.m.shape[-1]
+    fused_phd.load(n)
+    rec = next(r for r in _build.records
+               if r["source"] == fused_phd.SOURCE and r["defines"]["KN"] == n)
+    ptxas = " | ".join(ln.strip() for ln in rec["ptxas"].splitlines()
+                       if "registers" in ln or "spill" in ln)
+    spills = re.findall(r"(\d+) bytes spill stores", rec["ptxas"])
+    check(spills and not any(int(x) for x in spills), f"[phd_fused] n = {n} spills: {ptxas}")
+    reduce = lambda terms: phd.Estimate(*fused_phd.reduce(terms, m_max, j_max, model.trunc,
+                                                          model.merge_dist))
+    plain = lambda terms: bank.vmap_leaves(lambda t: phd.reduce(model, t, m_max), terms)
+    expand = lambda s, t: bank.vmap_leaves(
+        lambda c, zz, mm: phd.predict_update(model, c, zz, mm), s, z[t], mask[t])
+    state, kept, filled, held = bank.tile(prior, runs), [], [], {}
+    with torch.no_grad(), linalg.highp:
+        for t in range(frames):
+            terms = expand(state, t)
+            kept.append((terms.w > model.trunc).sum(-1))
+            if t in PHD_TIMED_FRAMES:
+                held[t] = terms
+            state, est = phd.advance(state, reduce(terms))
+            filled.append((est.weights > 0).sum(-1))
+    kept = torch.stack(kept).flatten().double().cpu()
+    filled = torch.stack(filled).flatten().double().cpu()
+    spread = lambda a: {q: float(torch.quantile(a, v)) for q, v in
+                        (("min", 0.0), ("p50", 0.5), ("p90", 0.9), ("p99", 0.99), ("max", 1.0))}
+    dist = {"kept": spread(kept), "kept_mean": float(kept.mean()), "clusters": spread(filled),
+            "clusters_mean": float(filled.mean()),
+            "capacity": fused_phd.capacity(n, held[PHD_TIMED_FRAMES[0]].p_pred.shape[1], j_max,
+                                           held[PHD_TIMED_FRAMES[0]].w.shape[1])}
+    check(dist["clusters"]["max"] <= j_max, f"[phd_fused] more clusters than slots: {dist}")
+    timed, max_abs = {}, 0.0
+    for t, terms in held.items():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(PHD_LAUNCHES):
+                got = reduce(terms)
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if "fused_phd" in e.key]
+        device_ms = (sum(e.device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+                     if hits else None)
+        with linalg.highp:
+            plain_ms, want = cuda_ms(lambda: plain(terms), 1, lambda: plain(terms))
+        gaps = {"card": float((got.cardinality - want.cardinality).abs().max()),
+                "weights": float((got.weights - want.weights).abs().max()),
+                **phd_slot_gaps(torch, got, want, PHD_LIMITS["weights"]),
+                "extracted_differ": int((got.n_extracted != want.n_extracted).sum()),
+                "filled_differ": int(((got.weights > 0).sum(-1)
+                                      != (want.weights > 0).sum(-1)).sum())}
+        max_abs = max(max_abs, *(gaps[k] for k in ("card", "weights", "means", "covariances")))
+        jp, comps = terms.p_pred.shape[1], terms.w.shape[1]
+        nbytes = 4 * (runs * (comps + 2 * jp * n * n + j_max * (1 + n + n * n) + 2)
+                      + int((terms.w > model.trunc).sum()) * n)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        timed[t] = dict(device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        nbytes=nbytes, gaps=gaps)
+    del held, state, terms
+    gt.profiling.reset_counters()
+    run = lambda: phd.run(model, bank.tile(prior, runs), z, mask)
+    run()
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in gt.profiling.counters().items() if v}
+    launches = moved.get("fused_phd.launches.fused_phd", 0)
+    check(launches == 2 and moved.get("phd.fused_steps") == runs * frames,
+          f"[phd_fused] phd.run took another path than the kernel: {moved}")
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    last = timed[PHD_TIMED_FRAMES[-1]]
+    kernel = ("not measured (no device events)" if last["device_ms"] is None else
+              f"{last['device_ms']:.4f} ms device a launch")
+    log(f"[phd_fused] B = {runs}, T = {frames}, J_max {j_max}, m_max {m_max}, n {n}, f32 on "
+        f"{card}: ptxas {ptxas}; kept components per (run, frame) and clusters per step "
+        f"{json.dumps(dist)}; per timed frame (kernel device ms a launch, plain reduce ms "
+        f"a call, bound ms by bytes, gaps) {json.dumps(timed)}; frame {PHD_TIMED_FRAMES[-1]}: "
+        f"kernel {kernel}, bound {last['bound_ms']:.5f} ms, plain {last['plain_ms']:.1f} ms; "
+        f"fused phd.run of the request {run_ms:.1f} ms ({runs * frames / run_ms * 1e3:.5g} "
+        f"steps/s), {launches} launches a call; phase {time.perf_counter() - t_phase:.1f} s "
+        f"host clock")
+    check(all(v["gaps"][k] <= lim for v in timed.values() for k, lim in PHD_LIMITS.items())
+          and all(v["gaps"]["extracted_differ"] == v["gaps"]["filled_differ"] == 0
+                  for v in timed.values()),
+          f"[phd_fused] fused and plain reduce differ beyond {PHD_LIMITS}: {timed}")
+    return dict(ms=last["device_ms"], plain_ms=last["plain_ms"], bound_ms=last["bound_ms"],
+                bound_by="bytes", max_abs=max_abs, launches=launches, run_ms=run_ms,
+                survivors=dist, frames=timed)
+
+
 def nav_streams(np, rng, steps, dt, landmarks):
     """A maneuvering IMU arc (tests/test_iekf.py's sinusoid body rates and
     specific force) with noisy gyro / accel, landmark, GPS and body-velocity
@@ -4935,6 +5095,8 @@ def run():
     counts["fused_imm"], max_err["fused_imm"] = imm_fused["launches"], imm_fused["max_abs"]
     od_fused = timed("od fused", phase_od_fused, gt, torch, device, card)
     counts["fused_od"], max_err["fused_od"] = od_fused["launches"], od_fused["max_abs"]
+    phd_fused = timed("phd fused", phase_phd_fused, gt, torch, device, card)
+    counts["fused_phd"], max_err["fused_phd"] = phd_fused["launches"], phd_fused["max_abs"]
     timed("nav", phase_nav, gt, torch, device, card)
     timed("factored", phase_factored, gt, torch, device, card)
     timed("tracking", phase_tracking, gt, torch, device, card)
@@ -4974,7 +5136,11 @@ def run():
         kernel_entry("fused_od", counts, max_err, od_fused["ms"], od_fused["plain_ms"],
                      None, od_fused["bound_ms"], od_fused["bound_by"],
                      call_ms=od_fused["call_ms"], all_outputs_ms=od_fused["all_outputs_ms"],
-                     gaps=od_fused["gaps"], clocks=od_fused["clocks"])]
+                     gaps=od_fused["gaps"], clocks=od_fused["clocks"]),
+        kernel_entry("fused_phd", counts, max_err, phd_fused["ms"], phd_fused["plain_ms"],
+                     None, phd_fused["bound_ms"], phd_fused["bound_by"],
+                     run_ms=phd_fused["run_ms"], survivors=phd_fused["survivors"],
+                     frames=phd_fused["frames"])]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,14 +17,24 @@ stable=True)`, JAX's stable order (the zero-weight padded components
 tie); log-determinants come from Cholesky factors.  `run` is one
 `ops.scan.scan`; a bank is a state with a leading scene axis.
 
+`step` is `predict_update` (predict and update, to the `Terms` before
+truncation) of each scene, then the reduce (truncation, merge, sort):
+`reduce` of each scene, or, where `ops.fused_phd.takes` the call (float32
+on one card, a graph, no gradient, no adaptive births), one launch of
+`ops.fused_phd`'s kernel for the whole bank, whose plain version is
+`reduce`.  `run` scans `step` on either path.
+
 `step`'s phases are `profiling.span`s: `phd.predict`, `phd.update` (the
 Kalman geometry, the likelihoods of every component-candidate pair and
-the updated mixture) and `phd.reduce` (truncation, `gsf.cluster_reduce`
-and the sort); `run` is `phd.run`.  A step replayed from the graph runs
-no Python, so the step's spans record at the scan's warm-up and capture
-only.  `counts` (group `phd`) is moved once a `run` call from shapes
-known on the host: calls, (scene, frame) steps, merge rounds (j_max a
-step whose mixture exceeds j_max) and the components entering the merge.
+the updated mixture) and `phd.reduce` (truncation, the merge and the
+sort, on either path); `run` is `phd.run`.  A step replayed from the
+graph runs no Python, so the step's spans record at the scan's warm-up
+and capture only.  `counts` (group `phd`) is moved once a `run` call
+from shapes known on the host: calls, (scene, frame) steps, merge
+rounds (the merge's allowance, j_max a step whose mixture exceeds
+j_max, also where the kernel stops early because nothing remains), the
+components entering the merge, and the steps whose reduce ran in the
+fused kernel.
 """
 
 from __future__ import annotations
@@ -37,15 +47,18 @@ import torch
 from .. import linalg, profiling
 from .._device import resolve_device
 from ..noise import Noise
-from ..ops.bank import per_target
+from ..ops import fused_phd
+from ..ops.bank import per_target, vmap_leaves
 from ..ops.scan import scan
 from . import gsf, vanilla
 from .pdaf import logdet_psd
 
 
 #: Since the last `profiling.reset_counters()`: `run` calls, (scene,
-#: frame) steps, merge rounds and the components entering the merge.
-counts = profiling.counter_group("phd", "runs", "scene_frames", "merge_rounds", "components")
+#: frame) steps, merge rounds, the components entering the merge, and the
+#: steps whose reduce ran in the fused kernel.
+counts = profiling.counter_group("phd", "runs", "scene_frames", "merge_rounds", "components",
+                                 "fused_steps")
 
 
 class Model(NamedTuple):
@@ -158,9 +171,23 @@ def sort_by_weight(w, m, p):
             torch.take_along_dim(p, order[:, None, None], dim=0))
 
 
-@linalg.highp
-def step(model: Model, state: State, candidates, cand_mask):
-    """One GM-PHD frame: `candidates` [m_max, p], `cand_mask` [m_max]."""
+class Terms(NamedTuple):
+    """The mixture the update hands the reduce, before truncation: the miss
+    terms of the Jp predicted components, their detection terms
+    component-major (slot Jp + i m_max + j: component i, candidate j), then
+    the adaptive births if any.  The covariances are kept as their distinct
+    sources: slot c < Jp has p_pred[c], slot Jp + i m_max + j has p_upd[i],
+    an adaptive birth birth_p[0] (`reduce` lays them out)."""
+
+    w: torch.Tensor  # [C]
+    m: torch.Tensor  # [C, n]
+    p_pred: torch.Tensor  # [Jp, n, n]
+    p_upd: torch.Tensor  # [Jp, n, n]
+
+
+def predict_update(model: Model, state: State, candidates, cand_mask) -> Terms:
+    """The predict and update half of `step`: `candidates` [m_max, p],
+    `cand_mask` [m_max]."""
     kf = model.kf
     n = state.m.shape[1]
     m_max = candidates.shape[0]
@@ -185,36 +212,68 @@ def step(model: Model, state: State, candidates, cand_mask):
 
         w_all = torch.cat([(1.0 - model.p_detect) * w_pred, w_det.reshape(-1)])
         m_all = torch.cat([m_pred, m_det.reshape(jp * m_max, n)], dim=0)
-        p_all = torch.cat([p_pred,
-                           p_upd[:, None].expand(jp, m_max, n, n).reshape(jp * m_max, n, n)],
-                          dim=0)
         if model.adaptive_birth_w > 0.0:
             # Births from this frame's candidates join after its update.
-            w_ab, m_ab, p_ab = adaptive_births(model, candidates, mask)
+            w_ab, m_ab, _ = adaptive_births(model, candidates, mask)
             w_all = torch.cat([w_all, w_ab])
             m_all = torch.cat([m_all, m_ab], dim=0)
-            p_all = torch.cat([p_all, p_ab], dim=0)
+    return Terms(w_all, m_all, p_pred, p_upd)
 
+
+def reduce(model: Model, terms: Terms, m_max: int) -> Estimate:
+    """The reduce half of `step`: truncation, `gsf.cluster_reduce` into
+    j_max slots and the sort; the Estimate's cardinality is the truncated
+    Σw.  `ops.fused_phd.reduce` is the same for a bank on the card."""
+    jp, n = terms.p_pred.shape[0], terms.p_pred.shape[-1]
+    p_all = [terms.p_pred, terms.p_upd[:, None].expand(jp, m_max, n, n).reshape(jp * m_max, n, n)]
+    if model.adaptive_birth_w > 0.0:
+        p_all.append(model.birth_p[0].expand(m_max, n, n))
+    w_all = torch.where(terms.w > model.trunc, terms.w, 0.0)
+    total = w_all.sum()
+    m_red, p_red, w_red = gsf.cluster_reduce(terms.m, torch.cat(p_all, dim=0), w_all,
+                                             model.j_max, model.merge_dist)
+    w_red, m_red, p_red = sort_by_weight(w_red, m_red, p_red)
+    return Estimate(cardinality=total, weights=w_red, states=m_red, covariances=p_red,
+                    n_extracted=(w_red > 0.5).sum(dtype=torch.int32))
+
+
+def advance(state: State, est: Estimate):
+    """(the next State, the Estimate) from a step's reduce."""
+    return State(est.weights, est.states, est.covariances, state.k + 1), est
+
+
+@linalg.highp
+def step(model: Model, state: State, candidates, cand_mask, *, fused: bool = False):
+    """One GM-PHD frame of a scene (`candidates` [m_max, p], `cand_mask`
+    [m_max]) or of a bank (state.w [B, j_max], candidates [B, m_max, p],
+    masks [B, m_max]): `predict_update` of each scene, then `reduce` of
+    each, or with `fused` one `ops.fused_phd.reduce` launch for them all
+    (`run` sets it where `ops.fused_phd.takes` the call)."""
+    bank = state.w.dim() == 2
+    m_max = candidates.shape[-2]
+    terms = per_target(lambda c, fr: predict_update(model, c, fr[0], fr[1]), bank)(
+        state, (candidates, cand_mask))
     with profiling.span("phd.reduce"):
-        w_all = torch.where(w_all > model.trunc, w_all, 0.0)
-        total = w_all.sum()
-        m_red, p_red, w_red = gsf.cluster_reduce(m_all, p_all, w_all, model.j_max,
-                                                 model.merge_dist)
-        w_red, m_red, p_red = sort_by_weight(w_red, m_red, p_red)
-    est = Estimate(cardinality=total, weights=w_red, states=m_red, covariances=p_red,
-                   n_extracted=(w_red > 0.5).sum(dtype=torch.int32))
-    return State(w_red, m_red, p_red, state.k + 1), est
+        if fused:
+            est = Estimate(*fused_phd.reduce(terms, m_max, model.j_max, model.trunc,
+                                             model.merge_dist))
+        elif bank:
+            est = vmap_leaves(lambda t: reduce(model, t, m_max), terms)
+        else:
+            est = reduce(model, terms, m_max)
+    return advance(state, est)
 
 
 @linalg.highp
 def run(model: Model, state: State, candidates, cand_masks, *, graph: bool = True):
     """`step` over [T, m_max, p] frames as one `ops.scan.scan`; a bank:
-    state.w [B, j_max], frames [T, B, m_max, p], masks [T, B, m_max]."""
+    state.w [B, j_max], frames [T, B, m_max, p], masks [T, B, m_max].
+    Where `ops.fused_phd.takes` the call, each step's reduce is one launch
+    of the fused kernel for the whole bank; every other call reduces each
+    scene with `reduce`."""
     bank = state.w.dim() == 2
-
-    def body(carry, xs):
-        return per_target(lambda c, fr: step(model, c, fr[0], fr[1]), bank)(carry, xs)
-
+    fused = fused_phd.takes(model, state, candidates, cand_masks, graph)
+    body = lambda c, fr: step(model, c, fr[0], fr[1], fused=fused)
     with profiling.span("phd.run"):
         out = scan(body, state, (candidates, cand_masks), graph=graph)
     steps = candidates.shape[0] * (state.w.shape[0] if bank else 1)
@@ -227,4 +286,5 @@ def run(model: Model, state: State, candidates, cand_masks, *, graph: bool = Tru
     counts["scene_frames"] += steps
     counts["merge_rounds"] += steps * model.j_max if components > model.j_max else 0
     counts["components"] += steps * components
+    counts["fused_steps"] += steps if fused else 0
     return out

@@ -16,24 +16,26 @@ import torch
 
 import gokalman_tpu_torch
 from gokalman_tpu_torch import profiling
-from gokalman_tpu_torch.ops import _build, fused_imm, fused_mc, fused_od
+from gokalman_tpu_torch.ops import _build, fused_imm, fused_mc, fused_od, fused_phd
 
 PACKAGE = Path(gokalman_tpu_torch.__file__).parent
 COUNTERS = {"scan.captures", "scan.replays", "scan.plain_steps", "fused_mc.launches.fused_mc",
             "fused_mc.launches.sample_normals", "fused_imm.launches.fused_imm",
             "fused_od.launches.fused_od", "fused_od.plan.clusters", "fused_od.plan.extra_waves",
             "od.runs", "od.object_steps", "phd.runs", "phd.scene_frames", "phd.merge_rounds",
-            "phd.components"}
+            "phd.components", "phd.fused_steps", "fused_phd.launches.fused_phd"}
 #: Each library's source and the table its wrapper hands `_build.load`.
 TABLES = {"fused_mc.cu": fused_mc.ENTRIES, "sample_normals.cu": fused_mc.K2_ENTRIES,
-          "fused_imm.cu": fused_imm.ENTRIES, "fused_od.cu": fused_od.ENTRIES}
+          "fused_imm.cu": fused_imm.ENTRIES, "fused_od.cu": fused_od.ENTRIES,
+          "fused_phd.cu": fused_phd.ENTRIES}
 #: The C parameter types of the kernels' entries, as ctypes passes them.
 C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "uint64_t": ctypes.c_uint64,
-           "uint32_t": ctypes.c_uint32}
+           "uint32_t": ctypes.c_uint32, "float": ctypes.c_float}
 #: Every kernel's launch counter: (its wrapper's group, the kernel).
 KERNELS = [("fused_mc", "fused_mc"), ("fused_mc", "sample_normals"), ("fused_imm", "fused_imm"),
-           ("fused_od", "fused_od")]
-WRAPPERS = {"fused_mc": fused_mc, "fused_imm": fused_imm, "fused_od": fused_od}
+           ("fused_od", "fused_od"), ("fused_phd", "fused_phd")]
+WRAPPERS = {"fused_mc": fused_mc, "fused_imm": fused_imm, "fused_od": fused_od,
+            "fused_phd": fused_phd}
 
 
 def _imports(path: Path):
@@ -174,7 +176,7 @@ def test_on_card_wants_every_tensor_on_one_cuda_device():
 
 
 def test_reset_counters_zeroes_every_counter():
-    """The fifteen counters are registered from import; each is moved
+    """The seventeen counters are registered from import; each is moved
     through its owner's dict, and `reset_counters` sets every one back to
     0."""
     from gokalman_tpu_torch import od

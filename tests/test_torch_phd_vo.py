@@ -150,7 +150,7 @@ def test_counters_come_from_shapes_alone(monkeypatch):
     got = {k: v for k, v in profiling.counters().items() if k.startswith("phd.")}
     assert got == {"phd.runs": 1, "phd.scene_frames": 12_800,
                    "phd.merge_rounds": 12_800 * 100,
-                   "phd.components": 12_800 * 104 * 129}
+                   "phd.components": 12_800 * 104 * 129, "phd.fused_steps": 0}
     phd.run(model._replace(adaptive_birth_w=0.02), state, z, mask)
     assert profiling.counters()["phd.components"] == 12_800 * (2 * 104 * 129 + 128)
     profiling.reset_counters()

@@ -243,7 +243,7 @@ def test_counters_gather_every_counter_by_dotted_name():
                         "fused_imm.launches.fused_imm", "fused_od.launches.fused_od",
                         "fused_od.plan.clusters", "fused_od.plan.extra_waves", "od.runs",
                         "od.object_steps", "phd.runs", "phd.scene_frames", "phd.merge_rounds",
-                        "phd.components"}
+                        "phd.components", "phd.fused_steps", "fused_phd.launches.fused_phd"}
     profiling.reset_counters()
     _run_scan()  # CPU tensors: no counter moves
     assert profiling.counters()["scan.plain_steps"] == 0
