@@ -34,6 +34,17 @@ step maps over a bank's scenes and runs in a CUDA graph.  The step is
 four stages, `_score`, `_gibbs_codes`, `_children` and `_prune`, which
 `chip_smoke.py` times apart.  Log-determinants come from Cholesky
 factors.  `run` is one `ops.scan.scan`.
+
+The stages are `profiling.span`s: `glmb.score` (prediction, Kalman
+geometry and the outcome table), `glmb.gibbs` (the in-step draws and the
+sampler; nothing with assoc="exact"), `glmb.children` (exact child
+weights and the top h_max) and `glmb.prune` (posteriors, label pruning,
+the estimate); `run` is `glmb.run`.  A step replayed from the graph runs
+no Python, so the stage spans record at the scan's warm-up and capture
+only.  `counts` (group `glmb`) is moved once a `run` call from shapes
+known on the host: calls, (scene, frame) steps, hypothesis slots, label
+slots (t_max + Jb a hypothesis), (hypothesis, label, candidate) pairs
+scored, Gumbel draws of the sampler and children scored.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import linalg
+from .. import linalg, profiling
 from .._device import resolve_device
 from ..noise import Noise
 from ..ops import philox
@@ -55,6 +66,12 @@ from .jpda import MAX_EVENTS, _enumerate_events
 from .lmb import _take
 from .phd import birth_tensors, geometry
 from .pmb import _mixture_moments
+
+#: Since the last `profiling.reset_counters()`: `run` calls, (scene,
+#: frame) steps, hypothesis slots, label slots, (hypothesis, label,
+#: candidate) pairs, Gibbs draws and children scored.
+counts = profiling.counter_group("glmb", "runs", "scene_frames", "hypothesis_slots",
+                                 "label_slots", "pairs", "gibbs_draws", "children")
 
 
 class Model(NamedTuple):
@@ -369,19 +386,24 @@ def step(model: Model, state: State, candidates, cand_mask, draws=None, key=None
     `key` for scene `scene` (an int tensor, 0 by default) and frame
     `state.k`; the weights are exact either way."""
     mask = cand_mask.bool()
-    laug_c, m_pred, p_pred, m_det, p_upd, labels_ext = _score(model, state, candidates, mask)
+    with profiling.span("glmb.score"):
+        laug_c, m_pred, p_pred, m_det, p_upd, labels_ext = _score(model, state, candidates, mask)
     gamma = None
     if model.assoc == "gibbs":
         if draws is None and key is None:
             raise ValueError("assoc='gibbs' requires draws or a key")
-        if draws is None:
-            scene = torch.zeros((), dtype=torch.int64, device=mask.device) if scene is None \
-                else scene
-            draws = philox_gumbels(key, state.k, scene, draws_shape(model, candidates.shape[0]),
-                                   laug_c.dtype)
-        gamma = _gibbs_codes(model, laug_c, draws)
-    new_log_w, parent, codes_sel = _children(model, state.log_w, laug_c, gamma)
-    return _prune(state, new_log_w, parent, codes_sel, m_pred, p_pred, m_det, p_upd, labels_ext)
+        with profiling.span("glmb.gibbs"):
+            if draws is None:
+                scene = torch.zeros((), dtype=torch.int64, device=mask.device) \
+                    if scene is None else scene
+                draws = philox_gumbels(key, state.k, scene,
+                                       draws_shape(model, candidates.shape[0]), laug_c.dtype)
+            gamma = _gibbs_codes(model, laug_c, draws)
+    with profiling.span("glmb.children"):
+        new_log_w, parent, codes_sel = _children(model, state.log_w, laug_c, gamma)
+    with profiling.span("glmb.prune"):
+        return _prune(state, new_log_w, parent, codes_sel, m_pred, p_pred, m_det, p_upd,
+                      labels_ext)
 
 
 @linalg.highp
@@ -402,4 +424,18 @@ def run(model: Model, state: State, candidates, cand_masks, key=None, draws=None
         one = lambda c, fr: step(model, c, fr[0], fr[1], fr[2], key, fr[3])
         return per_target(one, bank)(carry, xs + (scenes,))
 
-    return scan(body, state, (candidates, cand_masks, draws), graph=graph)
+    with profiling.span("glmb.run"):
+        out = scan(body, state, (candidates, cand_masks, draws), graph=graph)
+    steps = candidates.shape[0] * (state.log_w.shape[0] if bank else 1)
+    m_max = candidates.shape[-2]
+    l_tot = model.t_max + model.birth_r.shape[0]
+    gibbs = model.assoc == "gibbs"
+    counts["runs"] += 1
+    counts["scene_frames"] += steps
+    counts["hypothesis_slots"] += steps * model.h_max
+    counts["label_slots"] += steps * l_tot
+    counts["pairs"] += steps * model.h_max * l_tot * m_max
+    counts["gibbs_draws"] += (steps * math.prod(draws_shape(model, m_max))) if gibbs else 0
+    counts["children"] += steps * model.h_max * (model.n_samples if gibbs
+                                                 else model.codes.shape[0])
+    return out

@@ -33,6 +33,16 @@ Elems = Tuple[torch.Tensor, ...]
 #: replays, and plain-loop steps on a card.
 counts = profiling.counter_group("scan", "captures", "replays", "plain_steps")
 
+#: Each card's side stream and the graph captured last on it, kept for
+#: the process: every call warms up on the one stream and captures into
+#: the last graph's memory pool, so it reuses the memory the calls before
+#: it freed (that graph is never replayed again).  A stream and a pool of
+#: its own a call left that memory cached where nothing used it again
+#: (~5 GiB a banked `glmb.run` at h_max 1,000), and a capture cannot
+#: release cached memory: the 15th such call of a process ran out of
+#: memory in its capture.
+_side = {}
+
 
 def scan(step: Callable, carry, xs, length: int = None, *, reverse: bool = False,
          graph: bool = True):
@@ -136,6 +146,13 @@ def _empty_ys(step, carry, flat_xs, xs_spec):
         y_spec)
 
 
+def _side_of(device) -> list:
+    """[side stream, graph captured last or None] of the card `device`."""
+    if device not in _side:
+        _side[device] = [torch.cuda.Stream(device), None]
+    return _side[device]
+
+
 def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
     """The scan as one CUDA graph replayed `steps` times; None, with
     nothing captured, when the warm-up step's outputs need autograd."""
@@ -151,7 +168,8 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
         new_c, y = step(pytree.tree_unflatten(static_c, c_spec), x_t)
         return pytree.tree_flatten(new_c)[0], pytree.tree_flatten(y)
 
-    side = torch.cuda.Stream(device)
+    card = _side_of(device)
+    side, last = card
     side.wait_stream(torch.cuda.current_stream(device))
     with profiling.span("scan.warmup"), torch.cuda.stream(side):
         new_c, (y_w, y_spec) = body()
@@ -172,7 +190,7 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
     # which would cost every call.
     cuda_graph = torch.cuda.CUDAGraph()
     with profiling.span("scan.capture"), torch.cuda.stream(side):
-        cuda_graph.capture_begin()
+        cuda_graph.capture_begin(pool=None if last is None else last.pool())
         try:
             new_c, (ys, _) = body()
             # The outputs first: a y_t that is the incoming carry, or a
@@ -191,6 +209,7 @@ def _graph_scan(step, carry, flat_xs, xs_spec, steps, device):
             counter.add_(1)
         finally:
             cuda_graph.capture_end()
+    card[1] = cuda_graph
     counts["captures"] += 1
     torch.cuda.current_stream(device).wait_stream(side)
     with profiling.span("scan.replay"):

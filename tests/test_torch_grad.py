@@ -170,7 +170,7 @@ class _FakeStream:
 
 
 class _FakeGraph:
-    def capture_begin(self):
+    def capture_begin(self, pool=None):
         raise _Captured
 
     def capture_end(self):
@@ -186,6 +186,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _FakeStream())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(scan_mod, "_side", {})
 
 
 @pytest.mark.parametrize("grad", [True, False])

@@ -23,7 +23,9 @@ COUNTERS = {"scan.captures", "scan.replays", "scan.plain_steps", "fused_mc.launc
             "fused_mc.launches.sample_normals", "fused_imm.launches.fused_imm",
             "fused_od.launches.fused_od", "fused_od.plan.clusters", "fused_od.plan.extra_waves",
             "od.runs", "od.object_steps", "phd.runs", "phd.scene_frames", "phd.merge_rounds",
-            "phd.components", "phd.fused_steps", "fused_phd.launches.fused_phd"}
+            "phd.components", "phd.fused_steps", "fused_phd.launches.fused_phd", "glmb.runs",
+            "glmb.scene_frames", "glmb.hypothesis_slots", "glmb.label_slots", "glmb.pairs",
+            "glmb.gibbs_draws", "glmb.children"}
 #: Each library's source and the table its wrapper hands `_build.load`.
 TABLES = {"fused_mc.cu": fused_mc.ENTRIES, "sample_normals.cu": fused_mc.K2_ENTRIES,
           "fused_imm.cu": fused_imm.ENTRIES, "fused_od.cu": fused_od.ENTRIES,
@@ -176,16 +178,16 @@ def test_on_card_wants_every_tensor_on_one_cuda_device():
 
 
 def test_reset_counters_zeroes_every_counter():
-    """The seventeen counters are registered from import; each is moved
+    """The twenty-four counters are registered from import; each is moved
     through its owner's dict, and `reset_counters` sets every one back to
     0."""
     from gokalman_tpu_torch import od
-    from gokalman_tpu_torch.filters import phd
+    from gokalman_tpu_torch.filters import glmb, phd
     from gokalman_tpu_torch.ops import scan
 
     assert set(profiling.counters()) == COUNTERS
     owners = {"scan": scan.counts, "od": od.counts, "fused_od.plan": fused_od.plan,
-              "phd": phd.counts,
+              "phd": phd.counts, "glmb": glmb.counts,
               **{f"{w}.launches": m.launches for w, m in WRAPPERS.items()}}
     for d in owners.values():
         for k in d:

@@ -187,7 +187,7 @@ class _Graph:
     """A graph whose capture runs the step once, eagerly, and whose
     replays do nothing: enough for the scan's spans and counters."""
 
-    def capture_begin(self):
+    def capture_begin(self, pool=None):
         pass
 
     def capture_end(self):
@@ -204,6 +204,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(scan_mod, "_side", {})
 
 
 @pytest.mark.parametrize("graph", [True, False])
@@ -243,7 +244,9 @@ def test_counters_gather_every_counter_by_dotted_name():
                         "fused_imm.launches.fused_imm", "fused_od.launches.fused_od",
                         "fused_od.plan.clusters", "fused_od.plan.extra_waves", "od.runs",
                         "od.object_steps", "phd.runs", "phd.scene_frames", "phd.merge_rounds",
-                        "phd.components", "phd.fused_steps", "fused_phd.launches.fused_phd"}
+                        "phd.components", "phd.fused_steps", "fused_phd.launches.fused_phd",
+                        "glmb.runs", "glmb.scene_frames", "glmb.hypothesis_slots",
+                        "glmb.label_slots", "glmb.pairs", "glmb.gibbs_draws", "glmb.children"}
     profiling.reset_counters()
     _run_scan()  # CPU tensors: no counter moves
     assert profiling.counters()["scan.plain_steps"] == 0

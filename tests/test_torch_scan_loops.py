@@ -230,3 +230,28 @@ def test_smoothers_are_scans_equal_to_their_loops(scans):
     xr, pr = _rts_loop(phis, q, est.state, est.covariance, offsets=offsets)
     _equal((x2, p2), (xr, pr), dict(rtol=1e-8, atol=1e-10))
     assert len(scans) == 5
+
+
+@pytest.mark.cuda
+def test_graph_scans_reuse_their_memory_on_card():
+    """Twenty graph scans in a row, each step making 512 MiB of
+    temporaries: the card's reserved memory stays at what the second call
+    left, since every call warms up on the card's one side stream and
+    captures into the pool of the graph captured before it, and the carry
+    and outputs are the plain loop's."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: this test runs on the card")
+    big = 64 * 2**20
+
+    def step(c, x):
+        t = torch.ones(big, device="cuda") * x
+        return c + t[:4], t[:2].sum()
+
+    xs = torch.arange(3.0, device="cuda")
+    want = scan_mod.scan(step, torch.zeros(4, device="cuda"), xs, graph=False)
+    reserved = []
+    for _ in range(20):
+        got = scan_mod.scan(step, torch.zeros(4, device="cuda"), xs)
+        torch.testing.assert_close(got, want, **EXACT)
+        reserved.append(torch.cuda.memory_reserved())
+    assert max(reserved[1:]) <= reserved[1], reserved
